@@ -1,0 +1,97 @@
+"""Frame: the per-image pyramid as a NamedTuple of tensors.
+
+Port of `vslam_tpu.core.frame`. Level 0 is the full resolution. Intensity
+levels come from repeated pyrDown; depth levels from the invalid-masked 3x3
+median then decimation on pyrDown's grid; derivatives are Sobel of the 3x3
+Gaussian-blurred intensity (`Frame.cpp:215-275`).
+
+Every leaf may carry leading batch axes: a frame built from (B, H, W)
+images has (B,)-shaped camera leaves and a (B,) identity pose, so a batch of
+pairs is one Frame (the port's explicit pair axis in place of `vmap`).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from . import camera as cam_mod
+from . import image as img_ops
+from . import se3
+from .camera import Camera
+from .se3 import SE3
+
+__all__ = ["Frame", "create_frame", "sensor_to_f32"]
+
+
+def sensor_to_f32(intensity: torch.Tensor, depth: torch.Tensor, depth_scale: float = 1.0):
+    """Native sensor dtype -> (f32 intensity, metric f32 depth): uint8 gray
+    and uint16 depth counts (times ``depth_scale`` metres per count) convert;
+    float inputs pass through unchanged."""
+    if not intensity.is_floating_point():
+        intensity = intensity.to(torch.float32)
+    if not depth.is_floating_point():
+        depth = depth.to(torch.float32) * depth_scale
+    return intensity, depth
+
+
+class Frame(NamedTuple):
+    intensity: Tuple[torch.Tensor, ...]  # (..., H_l, W_l) float, [0, 255]
+    depth: Tuple[torch.Tensor, ...]  # (..., H_l, W_l) metres; <= 0 invalid
+    dIx: Tuple[torch.Tensor, ...]  # Sobel-x of blurred intensity
+    dIy: Tuple[torch.Tensor, ...]
+    cameras: Tuple[Camera, ...]  # leaves (...,)
+    pose: SE3  # world -> camera, leaves (..., 3, 3), (..., 3)
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.intensity)
+
+
+def create_frame(
+    intensity: torch.Tensor,
+    depth: torch.Tensor,
+    camera: Camera,
+    n_levels: int = 3,
+    pose: Optional[SE3] = None,
+) -> Frame:
+    """Build the pyramid frame from full-resolution intensity + depth
+    (..., H, W). Level scale is 0.5 per level. Camera leaves are broadcast to
+    the images' batch shape."""
+    batch = intensity.shape[:-2]
+    dtype, device = intensity.dtype, intensity.device
+    if pose is None:
+        pose = se3.identity(batch, dtype=dtype, device=device)
+    camera = Camera(
+        *(torch.as_tensor(c, dtype=dtype, device=device).expand(batch).clone() for c in camera)
+    )
+
+    # non-finite depth -> 0 at ingest (reference NodeMapping.cpp createFrame)
+    depth = torch.where(torch.isfinite(depth), depth, torch.zeros_like(depth))
+
+    intensities = [intensity]
+    depths = [depth]
+    cams = [camera]
+    for lvl in range(1, n_levels):
+        intensities.append(img_ops.pyr_down(intensities[-1]))
+        d_prev = depths[-1]
+        d_blur = img_ops.median_blur_3x3_masked(d_prev, d_prev <= 0.0)
+        # decimate on pyrDown's grid so odd sizes match the intensity levels
+        depths.append(d_blur[..., ::2, ::2])
+        cams.append(cam_mod.scale(camera, 0.5**lvl))
+
+    dIx, dIy = [], []
+    for lvl in range(n_levels):
+        blurred = img_ops.gaussian_blur_3x3(intensities[lvl])
+        dIx.append(img_ops.sobel_x(blurred))
+        dIy.append(img_ops.sobel_y(blurred))
+
+    return Frame(
+        intensity=tuple(intensities),
+        depth=tuple(depths),
+        dIx=tuple(dIx),
+        dIy=tuple(dIy),
+        cameras=tuple(cams),
+        pose=pose,
+    )

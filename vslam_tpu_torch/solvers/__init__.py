@@ -1,0 +1,18 @@
+"""Nonlinear least-squares engine (port of `vslam_tpu.solvers`)."""
+
+from . import gauss_newton, linalg6, loss, normal_equations
+from .gauss_newton import SolverConfig, SolverResult, solve_gauss_newton
+from .loss import LossConfig
+from .normal_equations import NormalEquations
+
+__all__ = [
+    "gauss_newton",
+    "linalg6",
+    "loss",
+    "normal_equations",
+    "SolverConfig",
+    "SolverResult",
+    "solve_gauss_newton",
+    "LossConfig",
+    "NormalEquations",
+]

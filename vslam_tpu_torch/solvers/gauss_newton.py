@@ -1,0 +1,151 @@
+"""Gauss-Newton over a batch of independent problems.
+
+Port of `vslam_tpu.solvers.gauss_newton.solve_gauss_newton`, itself the
+guard/rollback semantics of reference `GaussNewton.cpp:33-102`:
+
+  * stop if nConstraints < nParameters
+  * stop if log|det(A)| is non-finite or below log(1e-6)
+  * stop if chi2 increased; x rolls back to the pre-iteration value
+  * converged if an iteration was accepted before and |dx| < minStepSize,
+    |max(b)| < minGradient (max(b), not max|b|) or |dChi2| < minReduction,
+    or (f32 extension) |dChi2| < min_relative_reduction * |chi2|
+  * NaN step: restore the pre-iteration x and stop
+
+The JAX version runs one problem per `lax.while_loop` under `vmap`. Here the
+leading axis B of every tensor is the batch, and a per-problem ``done``
+mask freezes each problem at its own exit, which is what `vmap` of the
+while loop does. The loop itself runs until every problem is done.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from ..utils.tree import tree_map
+from .linalg6 import cholesky_logdet_solve
+from .normal_equations import NormalEquations
+
+__all__ = ["SolverConfig", "SolverResult", "solve_gauss_newton"]
+
+_LOG_MIN_DET = torch.log(torch.tensor(1e-6, dtype=torch.float32)).item()
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Mirrors the reference GaussNewton ctor (GaussNewton.cpp:25-31);
+    minGradient and minReduction default to minStepSize."""
+
+    max_iterations: int = 100
+    min_step_size: float = 1e-11
+    min_gradient: float | None = None
+    min_reduction: float | None = None
+    # f32 extension: also stop when the chi2 improvement falls below this
+    # fraction of the current chi2. None disables.
+    min_relative_reduction: float | None = None
+
+    @property
+    def _min_gradient(self) -> float:
+        return self.min_step_size if self.min_gradient is None else self.min_gradient
+
+    @property
+    def _min_reduction(self) -> float:
+        return self.min_step_size if self.min_reduction is None else self.min_reduction
+
+
+class SolverResult(NamedTuple):
+    x: Any  # final optimization state, leaves (B, ...)
+    A: torch.Tensor  # (B, N, N) last accepted normal-equation matrix
+    b: torch.Tensor  # (B, N)
+    chi2: torch.Tensor  # (B,)
+    iterations: torch.Tensor  # (B,) int32 accepted iterations
+    valid: torch.Tensor  # (B,) bool: at least one iteration was accepted
+    chi2_history: torch.Tensor  # (B, max_iterations), NaN past the last evaluated
+    step_history: torch.Tensor  # (B, max_iterations)
+
+
+def _select(pred: torch.Tensor, a, b):
+    """Leaf-wise where(pred, a, b) with pred (B,) broadcast over each leaf."""
+    return tree_map(lambda u, v: torch.where(pred.view(-1, *([1] * (u.dim() - 1))), u, v), a, b)
+
+
+def gn_decision(ne: NormalEquations, dx, logdet, chi2_prev, pushed, config: SolverConfig, n_params=6):
+    """One iteration's guard and convergence logic, batched over (B,).
+
+    Returns (step, accepted, done); shared by the gather path and the plain
+    version of the whole-level kernel so the two cannot drift apart."""
+    stop_constraints = ne.n < n_params
+    stop_det = ~torch.isfinite(logdet) | (logdet < _LOG_MIN_DET)
+    chi2_increased = (pushed > 0) & (ne.chi2 > chi2_prev)
+    abort = stop_constraints | stop_det | chi2_increased
+    # sequential sum of squares: the order the CUDA kernel uses
+    step = torch.sqrt(sum(dx[..., k] * dx[..., k] for k in range(dx.shape[-1])))
+    nan_step = ~torch.isfinite(step)
+
+    d_chi2 = torch.abs(ne.chi2 - chi2_prev)
+    b_max = torch.max(ne.b, dim=-1).values
+    converged = (pushed > 0) & (
+        (step < config.min_step_size)
+        | (torch.abs(b_max) < config._min_gradient)
+        | (d_chi2 < config._min_reduction)
+    )
+    if config.min_relative_reduction is not None:
+        converged = converged | (
+            (pushed > 0) & (d_chi2 < config.min_relative_reduction * torch.abs(ne.chi2))
+        )
+    accepted = ~abort & ~nan_step
+    return step, accepted, abort | nan_step | converged
+
+
+def solve_gauss_newton(
+    compute_ne: Callable[[Any], NormalEquations],
+    update_x: Callable[[Any, torch.Tensor], Any],
+    x0: Any,
+    n_params: int,
+    config: SolverConfig = SolverConfig(),
+) -> SolverResult:
+    """Batched GN: ``compute_ne(x)`` returns NormalEquations with leading
+    axis B; ``update_x(x, dx)`` applies a (B, n_params) step."""
+    ne0 = compute_ne(x0)
+    A0 = ne0.A
+    B, dtype, device = A0.shape[0], A0.dtype, A0.device
+    x = x0
+    chi2_prev = torch.full((B,), float("inf"), dtype=dtype, device=device)
+    A_last = torch.eye(n_params, dtype=dtype, device=device).expand(B, n_params, n_params).clone()
+    b_last = torch.zeros(B, n_params, dtype=dtype, device=device)
+    pushed = torch.zeros(B, dtype=torch.int32, device=device)
+    done = torch.zeros(B, dtype=torch.bool, device=device)
+    chi2_hist = torch.full((B, config.max_iterations), float("nan"), dtype=dtype, device=device)
+    step_hist = torch.full_like(chi2_hist, float("nan"))
+
+    ne = ne0
+    for i in range(config.max_iterations):
+        if i > 0:
+            if bool(done.all()):
+                break
+            ne = compute_ne(x)
+        live = ~done
+        dx, logdet = cholesky_logdet_solve(ne.A, ne.b)
+        step, accepted, stop = gn_decision(ne, dx, logdet, chi2_prev, pushed, config, n_params)
+        x_new = update_x(x, dx)
+        take = live & accepted
+        x = _select(take, x_new, x)
+        A_last = torch.where(take[:, None, None], ne.A, A_last)
+        b_last = torch.where(take[:, None], ne.b, b_last)
+        chi2_prev = torch.where(take, ne.chi2, chi2_prev)
+        pushed = pushed + take.to(torch.int32)
+        chi2_hist[:, i] = torch.where(live, ne.chi2, chi2_hist[:, i])
+        step_hist[:, i] = torch.where(live, step, step_hist[:, i])
+        done = done | stop
+    return SolverResult(
+        x=x,
+        A=A_last,
+        b=b_last,
+        chi2=chi2_prev,
+        iterations=pushed,
+        valid=pushed > 0,
+        chi2_history=chi2_hist,
+        step_history=step_hist,
+    )
