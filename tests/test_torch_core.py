@@ -200,6 +200,30 @@ def test_synthetic_render_copy_matches_jax_package():
     np.testing.assert_array_equal(d_t, d_j)
 
 
+@pytest.mark.parametrize("frame", [0, 21, 63])
+def test_synthetic_render_boxes_copy_matches_jax_package(frame):
+    """The robust odometry profile's scene and motion: `BoxScene(seed=4)`
+    seen from poses of `orbit_trajectory(256, radius=0.4, height=0.05,
+    yaw=0.12)`, bit for bit."""
+    K = tsyn.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    p_t = tsyn.orbit_trajectory(256, radius=0.4, height=0.05, yaw=0.12)[frame]
+    p_j = jsyn.orbit_trajectory(256, radius=0.4, height=0.05, yaw=0.12)[frame]
+    np.testing.assert_array_equal(p_t, p_j)
+    i_j, d_j = jsyn.render_boxes(K, p_j, (H, W), jsyn.BoxScene(seed=4))
+    i_t, d_t = tsyn.render_boxes(K, p_t, (H, W), tsyn.BoxScene(seed=4))
+    _, d_bg = tsyn.render(K, p_t, (H, W), tsyn.BoxScene(seed=4).background)
+    assert (d_t < d_bg).any()  # a patch occludes the background
+    np.testing.assert_array_equal(i_t, i_j)
+    np.testing.assert_array_equal(d_t, d_j)
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"trans_amp": 0.08, "rot_amp": 0.03}])
+def test_synthetic_smooth_trajectory_copy_matches_jax_package(kwargs):
+    """The odometry profile's motion, bit for bit."""
+    np.testing.assert_array_equal(np.stack(tsyn.smooth_trajectory(64, **kwargs)),
+                                  np.stack(jsyn.smooth_trajectory(64, **kwargs)))
+
+
 def test_create_frame_matches_jax():
     inten, depth = _rendered(np.eye(4))
     fj = j_create_frame(jnp.asarray(inten), jnp.asarray(depth),

@@ -1,5 +1,5 @@
-"""The whole-level GN CUDA kernel against its plain PyTorch version, on the
-card. Marked `cuda`; skips where torch sees no CUDA device. The machine with
+"""The whole-level GN CUDA kernel (both entries: quadratic and robust loss)
+against its plain PyTorch version, on the card. Marked `cuda`; skips where torch sees no CUDA device. The machine with
 the card has no JAX, which tests/conftest.py imports, so run it there as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -22,7 +22,7 @@ from vslam_tpu_torch.core.camera import Camera
 from vslam_tpu_torch.core.frame import create_frame
 from vslam_tpu_torch.core.se3 import SE3
 from vslam_tpu_torch.io import synthetic
-from vslam_tpu_torch.solvers import SolverConfig
+from vslam_tpu_torch.solvers import LossConfig, SolverConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +95,40 @@ def test_kernel_equals_plain_bit_for_bit(device, F, max_points, interpolation, i
     assert res_k.iterations.tolist() == res_p.iterations.tolist()
     if max_iterations >= 30:
         assert int(res_k.iterations.max()) > 1
+    for a, b in [(rel_k.R, rel_p.R), (rel_k.t, rel_p.t), (res_k.A, res_p.A), (res_k.b, res_p.b),
+                 (res_k.chi2, res_p.chi2), (res_k.valid, res_p.valid),
+                 (res_k.chi2_history, res_p.chi2_history), (res_k.step_history, res_p.step_history)]:
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+ROBUST_CASES = [("Huber", "reference"), ("Tukey", "reference"), ("tdistribution", "reference"),
+                ("Huber", "mad"), ("Tukey", "mad"), ("Huber", "mean"), ("Tukey", "mean")]
+
+
+@pytest.mark.parametrize(
+    "function,scaler,F,interpolation,image_dtype,prior",
+    [(f, s, 1, "nearest", "float32", False) for f, s in ROBUST_CASES]
+    + [("Huber", "reference", 2, "nearest", "bfloat16", True),
+       ("tdistribution", "reference", 3, "bilinear", "float32", True),
+       ("Tukey", "mad", 1, "bilinear", "bfloat16", False)],
+)
+def test_robust_kernel_equals_plain_bit_for_bit(device, function, scaler, F, interpolation,
+                                                image_dtype, prior):
+    data, rel0, img, cam, x_pred = _problem(device, 5, F, 300)
+    cfg = ic.AlignmentConfig(
+        min_gradient=10.0, solver=SolverConfig(30, 1e-11, min_relative_reduction=1e-4),
+        loss=LossConfig(function, scaler=scaler), include_prior=prior,
+        prior_weight=(FX / 525.0) ** 2, interpolation=interpolation, sampler="fused_gn",
+        image_dtype=image_dtype, max_points=300,
+    )
+    xp = x_pred if prior else None
+    before = (fused_solve.LAUNCHES, fused_solve.ROBUST_LAUNCHES)
+    rel_k, res_k = fused_solve.solve_level_fused(data, rel0, img, cam, cfg, xp)
+    rel_p, res_p = fused_solve.solve_level_fused_plain(data, rel0, img, cam, cfg, xp)
+    torch.cuda.synchronize()
+    assert (fused_solve.LAUNCHES, fused_solve.ROBUST_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert res_k.iterations.tolist() == res_p.iterations.tolist()
+    assert int(res_k.iterations.max()) > 1
     for a, b in [(rel_k.R, rel_p.R), (rel_k.t, rel_p.t), (res_k.A, res_p.A), (res_k.b, res_p.b),
                  (res_k.chi2, res_p.chi2), (res_k.valid, res_p.valid),
                  (res_k.chi2_history, res_p.chi2_history), (res_k.step_history, res_p.step_history)]:

@@ -1,5 +1,6 @@
 """Guards of the port's boundaries: it imports without JAX, its kernel
-wrapper never falls back silently, and what it does not port yet raises."""
+wrapper never falls back silently, what it does not port yet raises, and
+chip_smoke's last line keeps the contract's keys."""
 
 import ast
 import dataclasses
@@ -20,6 +21,7 @@ from vslam_tpu_torch.alignment import ic as tic
 from vslam_tpu_torch.alignment.ic import ICLevelData
 from vslam_tpu_torch.core.camera import Camera
 from vslam_tpu_torch.core.se3 import SE3
+from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry
 from vslam_tpu_torch.solvers import LossConfig
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -44,7 +46,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15  # the slice's modules
+    assert int(out.stdout.split()[-1]) >= 30  # the slices' modules
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -96,17 +98,43 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
 @pytest.mark.parametrize(
     "cfg,what",
     [
-        (tic.AlignmentConfig(loss=LossConfig("Huber")), "loss"),
-        (tic.AlignmentConfig(sampler="fused_gn", loss=LossConfig("Tukey")), "loss"),
+        (tic.AlignmentConfig(sampler="fused", loss=LossConfig("Huber")), "sampler"),
+        (tic.AlignmentConfig(sampler="mxu", loss=LossConfig("Tukey")), "sampler"),
         (tic.AlignmentConfig(sampler="mxu"), "sampler"),
         (tic.AlignmentConfig(sampler="fused"), "sampler"),
-        (tic.AlignmentConfig(normalize_intensity=True), "normalize_intensity"),
+        (tic.AlignmentConfig(sampler="fused", normalize_intensity=True), "next slice"),
     ],
 )
 def test_unported_options_raise(cfg, what):
     data, rel0, img, cam = _tiny_problem()
     with pytest.raises(NotImplementedError, match=what):
         tic.solve_level(data, rel0, img, cam, cfg, None)
+
+
+@pytest.mark.parametrize(
+    "kwargs,cfg,what",
+    [
+        ({"mapping": object()}, SequentialConfig(), "mapping backend"),
+        ({"viz": object()}, SequentialConfig(), "live viewer"),
+        ({}, SequentialConfig(stereo_baseline=0.54), "stereo"),
+    ],
+)
+def test_unported_sequential_options_raise(kwargs, cfg, what):
+    cam = Camera.create(100.0, 100.0, 31.5, 23.5)
+    with pytest.raises(NotImplementedError, match=what):
+        SequentialOdometry(cam, cfg, **kwargs)
+
+
+def test_chip_smoke_result_line_keeps_the_contract():
+    """The last line names one device (the run uses cuda:0), whatever
+    torch.cuda.device_count() says, and carries exactly the contract's keys."""
+    import json
+
+    import chip_smoke
+
+    line = json.loads(json.dumps(chip_smoke.result_line("NVIDIA H100 80GB HBM3")))
+    assert line == {"ok": True, "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3",
+                                           "count": 1}}
 
 
 def test_build_names_the_hopper_target_and_refuses_without_nvcc(monkeypatch):
@@ -126,11 +154,25 @@ def test_alignment_config_from_jax_fields():
     cfg = JAlignmentConfig(
         min_gradient=12.5, solver=JSolverConfig(max_iterations=7, min_step_size=1e-9,
                                                 min_relative_reduction=1e-3),
-        loss=JLossConfig("None", huber_c=2.0), include_prior=False, prior_weight=0.3,
+        loss=JLossConfig("Tukey", huber_c=2.0, tdistribution_v=3.0, scaler="mad"),
+        include_prior=False, prior_weight=0.3,
         interpolation="nearest", orthonormalize=False, max_points=1234,
-        sampler="fused_gn", image_dtype="bfloat16",
+        sampler="fused_gn", image_dtype="bfloat16", normalize_intensity=True,
     )
     port = interop.alignment_config_from_fields(dataclasses.asdict(cfg))
     assert dataclasses.asdict(port) == dataclasses.asdict(cfg)
     assert port.solver._min_gradient == cfg.solver._min_gradient
     assert dataclasses.asdict(tic.AlignmentConfig()) == dataclasses.asdict(JAlignmentConfig())
+
+
+def test_sequential_config_from_jax_fields():
+    from vslam_tpu.odometry.sequential import SequentialConfig as JSequentialConfig
+
+    cfg = JSequentialConfig(
+        alignment=JAlignmentConfig(loss=JLossConfig("Huber", scaler="mean"), sampler="fused_gn"),
+        depth_scale=1.0 / 5000.0, prediction_model="Kalman", ekf_process_noise=3e-3,
+        kf_period=7, kf_max_translation=0.1, include_key_frame=False, n_levels=4,
+    )
+    port = interop.sequential_config_from_fields(dataclasses.asdict(cfg))
+    assert dataclasses.asdict(port) == dataclasses.asdict(cfg)
+    assert dataclasses.asdict(SequentialConfig()) == dataclasses.asdict(JSequentialConfig())

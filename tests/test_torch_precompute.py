@@ -109,3 +109,72 @@ def test_interop_level_data_roundtrip():
     td = interop.level_data_from_numpy(jd)
     assert td.mask.dtype == torch.bool and td.pcl.dtype == torch.float32
     _compare(jd, td)
+
+
+def test_standardize_and_normalize_level_match_jax():
+    """The exposure-robust mode's per-image standardization over valid
+    (nonzero) pixels, on a batch of two images."""
+    frames = [_frame(48, 64, seed=s) for s in (1, 2)]
+    inten = np.stack([f.intensity[0] for f in frames])
+    dIx = np.stack([f.dIx[0] for f in frames])
+    dIy = np.stack([f.dIy[0] for f in frames])
+    inten[0, :5] = 0.0  # invalid rows: excluded from the statistics
+    got = tic.normalize_level(*map(torch.as_tensor, (inten, dIx, dIy)))
+    want = jic.normalize_level(*map(jnp.asarray, (inten, dIx, dIy)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(tic._standardize(torch.as_tensor(inten)).numpy(),
+                               np.asarray(jic._standardize(jnp.asarray(inten))), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_precompute_frame_matches_jax(normalize):
+    """Every level of one frame, with and without normalize_intensity; the
+    port keeps the frame's leading axes (here none)."""
+    frame = _frame(48, 64, seed=3)
+    jcfg = jic.AlignmentConfig(min_gradient=10.0, max_points=1024, normalize_intensity=normalize)
+    jframe = jax.tree_util.tree_map(jnp.asarray, frame)
+    want = jax.tree_util.tree_map(np.asarray, jic.precompute_frame(jframe, jcfg))
+    got = tic.precompute_frame(interop.frame_from_numpy(frame),
+                               tic.AlignmentConfig(min_gradient=10.0, max_points=1024,
+                                                   normalize_intensity=normalize))
+    assert len(got) == len(want) == 2
+    for jd, td in zip(want, got):
+        np.testing.assert_array_equal(td.mask.numpy(), jd.mask)
+        np.testing.assert_allclose(td.pcl.numpy(), jd.pcl, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(td.J.numpy(), jd.J, rtol=1e-4, atol=1e-2 if normalize else 1e-3)
+        np.testing.assert_allclose(td.templ.numpy(), jd.templ, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_align_with_cached_ref_data_equals_uncached(normalize):
+    """`align(None, cur, ..., ref_data=precompute_frame(...))` gives the
+    result of `align(ref, cur, ...)`, also in the exposure-robust mode
+    (then against the JAX package too, pose within 1e-3)."""
+    from vslam_tpu.core.se3 import SE3 as JSE3
+    from vslam_tpu_torch.core.se3 import SE3
+    from vslam_tpu_torch.utils.tree import tree_map
+
+    f_ref, f_cur = _frame(48, 64, seed=0), _frame(48, 64, seed=1)
+    kw = dict(min_gradient=10.0, max_points=1024, normalize_intensity=normalize,
+              prior_weight=(525.0 * 64 / 640 / 525.0) ** 2)
+    cfg = tic.AlignmentConfig(**kw)
+    ref = tree_map(lambda x: x[None, None], interop.frame_from_numpy(f_ref))
+    cur = tree_map(lambda x: x[None], interop.frame_from_numpy(f_cur))
+    rel0 = SE3(torch.eye(3)[None, None], torch.zeros(1, 1, 3))
+    xp = torch.zeros(1, 1, 6)
+    plain = tic.align(ref, cur, rel0, xp, cfg)
+    data = tuple(tree_map(lambda x: x[:, None], d)
+                 for d in tic.precompute_frame(tree_map(lambda x: x[0], ref), cfg))
+    cached = tic.align(None, cur, rel0, xp, cfg, ref_data=data)
+    for a, b in zip(plain, cached):
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+    if normalize:
+        jref = jax.tree_util.tree_map(lambda x: jnp.asarray(x)[None], f_ref)
+        jcur = jax.tree_util.tree_map(jnp.asarray, f_cur)
+        rel, _, ok = jic.align(jref, jcur, JSE3(jnp.eye(3)[None], jnp.zeros((1, 3))),
+                               jnp.zeros((1, 6)), jic.AlignmentConfig(**kw))
+        assert bool(ok) and bool(plain[2][0])
+        np.testing.assert_allclose(plain[0].t[0].numpy(), np.asarray(rel.t), atol=1e-3)
+        np.testing.assert_allclose(plain[0].R[0].numpy(), np.asarray(rel.R), atol=1e-3)

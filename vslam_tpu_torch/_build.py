@@ -38,9 +38,12 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # vslam_solve_level_fused(10 pointers, image_is_bf16, B, F, P, H, W, bilinear,
 # include_prior, prior_weight, max_iterations, min_step_size, min_gradient,
 # min_reduction, min_relative_reduction, use_min_rel, orthonormalize, out,
-# chi2_hist, step_hist, stream)
+# chi2_hist, step_hist, stream); the robust entry adds loss_kind,
+# scaler_kind, huber_c, tdist_v, r_buf, vis_buf before out
+_COMMON = [_VP] * 10 + [_I] * 8 + [_F, _I] + [_F] * 4 + [_I, _I]
 _SIGNATURES = {
-    "vslam_solve_level_fused": [_VP] * 10 + [_I] * 8 + [_F, _I] + [_F] * 4 + [_I, _I] + [_VP] * 4,
+    "vslam_solve_level_fused": _COMMON + [_VP] * 4,
+    "vslam_solve_level_fused_robust": _COMMON + [_I, _I, _F, _F] + [_VP] * 6,
 }
 
 

@@ -1,11 +1,16 @@
 """Whole-level Gauss-Newton solve as one CUDA kernel per pyramid level.
 
-Port of `vslam_tpu.alignment.fused_solve.solve_level_fused`, quadratic-loss
-entry (the Pallas `_solve_kernel` over `_solve_impl`). One launch solves one
-pyramid level for all B pairs: one thread block per pair runs that pair's
-whole GN loop (warp, project, sample, JᵀWJ / JᵀWr / chi2, normalization,
-prior, 6x6 Cholesky, guards, compositional update, history) and exits at
-its own convergence. The kernel is `csrc/fused_solve.cu`.
+Port of `vslam_tpu.alignment.fused_solve.solve_level_fused`, both entries of
+the Pallas kernel: quadratic (`_solve_kernel`) and robust
+(`_solve_kernel_robust`), over `_solve_impl`. One launch solves one pyramid
+level for all B pairs: one thread block per pair runs that pair's whole GN
+loop (warp, project, sample, JᵀWJ / JᵀWr / chi2, normalization, prior, 6x6
+Cholesky, guards, compositional update, history) and exits at its own
+convergence. With a robust loss each iteration first caches r and the
+visibility in a (B, F, P) scratch, computes the residual scale from the
+cache (median / MAD by value bisection, mean, or the t-distribution fixed
+point) and then runs the weighted Gram pass. The kernel is
+`csrc/fused_solve.cu`.
 
 Two functions with one signature:
 
@@ -17,7 +22,8 @@ Two functions with one signature:
 
 The SE(3) exp / log and the re-orthonormalization are the series and
 Gram-Schmidt forms the TPU kernel uses (`fused_solve.py:71-127` of the JAX
-package), not the exact `core.se3` forms the gather path uses.
+package), not the exact `core.se3` forms the gather path uses; likewise the
+robust scale is the kernel's bisection median, not the gather path's sort.
 """
 
 from __future__ import annotations
@@ -31,12 +37,24 @@ from ..core.camera import Camera
 from ..core.se3 import SE3
 from ..solvers.gauss_newton import SolverResult, gn_decision
 from ..solvers.linalg6 import cholesky_logdet_solve
+from ..solvers.loss import TUKEY_C
 from ..solvers.normal_equations import NormalEquations
 
-__all__ = ["solve_level_fused", "solve_level_fused_plain", "LAUNCHES"]
+__all__ = ["solve_level_fused", "solve_level_fused_plain", "LAUNCHES", "ROBUST_LAUNCHES"]
 
-# kernel launches made by solve_level_fused (one per call on CUDA tensors)
+# kernel launches made by solve_level_fused (one per call on CUDA tensors),
+# both entries; ROBUST_LAUNCHES counts those of the robust entry alone
 LAUNCHES = 0
+ROBUST_LAUNCHES = 0
+
+# loss and scaler codes of the robust entry (fused_solve.cu, SolveParams)
+_LOSS_KIND = {"None": 0, "Huber": 1, "Tukey": 2, "tdistribution": 3}
+_SCALER_KIND = {"reference": 0, "mad": 1, "mean": 2}
+# value-domain bisection steps per rank (fused_solve.py:291 of the JAX
+# package), and the t-distribution fixed point's budget and tolerance
+_BISECT_STEPS = 24
+_TDIST_ITERATIONS = 30
+_TDIST_TOL = 1e-5
 
 # output row layout (f32): [A (36), b (6), chi2, iterations, valid,
 # delta R (9), delta t (3)] = 57 used
@@ -169,11 +187,11 @@ def _prepare_image(image_cur: torch.Tensor, cfg) -> torch.Tensor:
     return image_cur.to(torch.float32)
 
 
-def _frame_sums(data, rel: SE3, img: torch.Tensor, cam: Camera, bilinear: bool) -> torch.Tensor:
-    """Per-frame raw Gram sums (B, F, 29) at rel (B, F): warp, pinhole
-    projection, visibility (mask, z > 0, 1 < u < W-1, 1 < v < H-1),
-    nearest or bilinear sampling, residual; upper JᵀJ (21), Jᵀr (6), r²,
-    visible count."""
+def _residuals(data, rel: SE3, img: torch.Tensor, cam: Camera, bilinear: bool):
+    """Residuals r = I(w(x)) - T and visibility (B, F, P) at rel (B, F):
+    warp, pinhole projection, visibility (mask, z > 0, 1 < u < W-1,
+    1 < v < H-1), nearest or bilinear sampling. r is meaningful only where
+    visible."""
     B, F, P = data.templ.shape
     H, W = img.shape[-2:]
     R, t = rel.R[..., None, :, :], rel.t[..., None, :]
@@ -206,11 +224,124 @@ def _frame_sums(data, rel: SE3, img: torch.Tensor, cam: Camera, bilinear: bool) 
                 + ax * ((1.0 - ay) * px_at(iv, iu + 1) + ay * px_at(iv + 1, iu + 1)))
     else:
         iwxp = px_at(torch.floor(v + 0.5).long(), torch.floor(u + 0.5).long())
-    r = iwxp - data.templ
+    return iwxp - data.templ, visible
+
+
+def _sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the kernel's order."""
+    return _block_sum(x[..., None])[..., 0]
+
+
+def _const(x: float, like: torch.Tensor) -> torch.Tensor:
+    """An f32 constant on ``like``'s device. Dividing by a tensor keeps the
+    division IEEE on the card, where dividing by a Python number multiplies
+    by its reciprocal."""
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _bisect_median(v: torch.Tensor, m: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The kernel's masked median of v (B, F, P) over m, per (B, F): ranks
+    k_lo = floor((n-1)/2) and k_hi = floor(n/2) of the n = n_constraints
+    entries, each by 24 halvings of the [min, max] bracket (the k-th value
+    is the smallest x with count(m & v <= x) >= k + 1), averaged; 0 when
+    n = 0 (fused_solve.py:259-297 of the JAX package). Counts are exact, so
+    the order of the count does not matter."""
+    inf = torch.full_like(v, float("inf"))
+    mn = torch.where(m, v, inf).amin(-1)
+    mx = torch.where(m, v, -inf).amax(-1)
+    empty = ~(mx >= mn)
+    lo = torch.where(empty, torch.zeros_like(mn), mn)[..., None].repeat_interleave(2, -1)
+    hi = torch.where(empty, torch.zeros_like(mx), mx)[..., None].repeat_interleave(2, -1)
+    k = torch.stack([torch.clamp(torch.floor((n - 1.0) * 0.5), min=0.0),
+                     torch.clamp(torch.floor(n * 0.5), min=0.0)], dim=-1)
+    for _ in range(_BISECT_STEPS):
+        mid = 0.5 * (lo + hi)
+        cnt = (m[..., None, :] & (v[..., None, :] <= mid[..., None])).sum(-1).to(torch.float32)
+        below = cnt >= k + 1.0
+        lo, hi = torch.where(below, lo, mid), torch.where(below, mid, hi)
+    med = 0.5 * (hi[..., 0] + hi[..., 1])
+    return torch.where(n > 0, med, torch.zeros_like(med))
+
+
+def _tdist_sigma(r: torch.Tensor, m: torch.Tensor, n: torch.Tensor, v: float) -> torch.Tensor:
+    """The t-distribution fixed point sigma^2 <- sum r^2 (v+1) / (v + r^2 /
+    sigma^2) / max(n, 1) per (B, F), from sigma = 1, at most 30 steps, each
+    frame stopping at its own step <= 1e-5; at least 1e-12."""
+    n_safe = torch.clamp(n, min=1.0)
+    r2 = torch.where(m, r * r, torch.zeros_like(r))
+    vt = _const(v, r)
+    vp1 = vt + 1.0
+    sigma = torch.ones_like(n)
+    active = torch.ones_like(n, dtype=torch.bool)
+    for _ in range(_TDIST_ITERATIONS):
+        sigma2 = torch.clamp(sigma * sigma, min=1e-24)
+        acc = _sum(r2 * vp1 / (vt + r2 / sigma2[..., None]))
+        sigma_new = torch.sqrt(acc / n_safe)
+        step = torch.abs(sigma - sigma_new)
+        sigma = torch.where(active, sigma_new, sigma)
+        active = active & (step > _TDIST_TOL)
+        if not bool(active.any()):
+            break
+    return torch.clamp(sigma, min=1e-12)
+
+
+def _robust_scale(r: torch.Tensor, m: torch.Tensor, n: torch.Tensor, loss_cfg):
+    """(offset, sigma) (B, F) of the cached residuals r (zero where
+    invisible) over the interest mask m, by the kernel's methods."""
+    zero = torch.zeros_like(r)
+    if loss_cfg.function == "tdistribution":
+        sigma = _tdist_sigma(r, m, n, loss_cfg.tdistribution_v)
+        return torch.zeros_like(sigma), sigma
+    if loss_cfg.scaler == "mean":
+        mean = _sum(torch.where(m, r, zero)) / torch.clamp(n, min=1.0)
+        dev = _sum(torch.where(m, torch.abs(r - mean[..., None]), zero))
+        std = torch.sqrt(dev / torch.clamp(n - 1.0, min=1.0))
+        empty = n < 1.0
+        return (torch.where(empty, torch.zeros_like(mean), mean),
+                torch.where(empty | (std <= 0), torch.ones_like(std), std))
+    med = _bisect_median(r, m, n)
+    if loss_cfg.scaler == "mad":
+        sigma = 1.4826 * _bisect_median(torch.abs(r - med[..., None]), m, n)
+        return med, torch.where(sigma > 1e-6, sigma, torch.ones_like(sigma))
+    dev = _sum(torch.where(m, torch.abs(r - med[..., None]), zero))
+    std = torch.sqrt(dev / torch.clamp(n - 1.0, min=1.0))
+    return med, torch.where(std > 0, std, torch.ones_like(std))
+
+
+def _robust_weight(r_std: torch.Tensor, loss_cfg) -> torch.Tensor:
+    """M-estimator weight of the standardized residual, as the kernel
+    evaluates it (Huber's 1/|r| outlier weight included)."""
+    if loss_cfg.function == "Huber":
+        a = torch.abs(r_std)
+        return torch.where(a < _const(loss_cfg.huber_c, a), torch.ones_like(a),
+                           1.0 / torch.clamp(a, min=1e-30))
+    if loss_cfg.function == "Tukey":
+        c = _const(TUKEY_C, r_std)
+        rc = r_std / c
+        t = 1.0 - rc * rc
+        return torch.where(torch.abs(r_std) < c, t * t, torch.zeros_like(t))
+    vt = _const(loss_cfg.tdistribution_v, r_std)
+    return (vt + 1.0) / (vt + r_std * r_std)
+
+
+def _frame_sums(data, rel: SE3, img: torch.Tensor, cam: Camera, cfg) -> torch.Tensor:
+    """Per-frame raw Gram sums (B, F, 29) at rel (B, F) over the visible
+    points: upper JᵀWJ (21), JᵀWr (6), Σ w r², visible count. W is 1
+    (quadratic loss) or the robust weight of the scale computed from this
+    iteration's residuals."""
+    r, visible = _residuals(data, rel, img, cam, cfg.interpolation == "bilinear")
     J = data.J
-    terms = [J[..., a] * J[..., c] for a, c in _TRIU]
-    terms += [J[..., a] * r for a in range(6)] + [r * r, torch.ones_like(r)]
-    per_point = torch.stack(terms, dim=-1)
+    if cfg.loss.function == "None":
+        terms = [J[..., a] * J[..., c] for a, c in _TRIU]
+        terms += [J[..., a] * r for a in range(6)] + [r * r]
+    else:
+        r = torch.where(visible, r, torch.zeros_like(r))  # the kernel's residual cache
+        offset, sigma = _robust_scale(r, data.mask, data.n_constraints, cfg.loss)
+        w = _robust_weight((r - offset[..., None]) / sigma[..., None], cfg.loss)
+        wj = J * w[..., None]
+        terms = [wj[..., a] * J[..., c] for a, c in _TRIU]
+        terms += [wj[..., a] * r for a in range(6)] + [w * r * r]
+    per_point = torch.stack(terms + [torch.ones_like(r)], dim=-1)
     per_point = torch.where(visible[..., None], per_point, torch.zeros_like(per_point))
     return _block_sum(per_point)
 
@@ -219,7 +350,7 @@ def _fused_ne(data, rel: SE3, img, cam, cfg, include_prior, x_pred) -> NormalEqu
     """Stacked normalized NE: per frame, divide by the interest-point count
     (1 when n <= 1), then add the prior (x 1/255^2, + w I, b += w (x - x_pred)
     with the series log of the frame's pose); sum over the frames."""
-    sums = _frame_sums(data, rel, img, cam, cfg.interpolation == "bilinear")
+    sums = _frame_sums(data, rel, img, cam, cfg)
     n = data.n_constraints
     inv_n = torch.where(n > 1, 1.0 / torch.clamp(n, min=1.0), torch.ones_like(n))
     idx = torch.tensor(_TRIU_INDEX, device=sums.device)
@@ -321,8 +452,10 @@ def _checked(name: str, x: torch.Tensor, shape, dtype) -> torch.Tensor:
 
 
 def _launch(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_pred):
-    """Validate, allocate with torch.empty and launch on the current stream."""
-    global LAUNCHES
+    """Validate, allocate with torch.empty and launch on the current stream:
+    the quadratic entry for loss "None", else the robust entry with its
+    (B, F, P) residual and visibility scratch."""
+    global LAUNCHES, ROBUST_LAUNCHES
     from .._build import library
 
     B, F, P = data.templ.shape
@@ -355,32 +488,42 @@ def _launch(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_pred):
     out = torch.empty(B, _OUT, dtype=f32, device=dev)
     chist = torch.empty(B, max(n_it, 1), dtype=f32, device=dev)
     shist = torch.empty(B, max(n_it, 1), dtype=f32, device=dev)
-    ptrs = [ctypes.c_void_p(a.data_ptr()) for a in args]
     min_rel = s.min_relative_reduction
+    scalars = [
+        ctypes.c_int(int(img.dtype == torch.bfloat16)),
+        ctypes.c_int(B), ctypes.c_int(F), ctypes.c_int(P), ctypes.c_int(H), ctypes.c_int(W),
+        ctypes.c_int(int(cfg.interpolation == "bilinear")),
+        ctypes.c_int(int(include_prior)),
+        ctypes.c_float(cfg.prior_weight),
+        ctypes.c_int(n_it),
+        ctypes.c_float(s.min_step_size),
+        ctypes.c_float(s._min_gradient),
+        ctypes.c_float(s._min_reduction),
+        ctypes.c_float(0.0 if min_rel is None else min_rel),
+        ctypes.c_int(int(min_rel is not None)),
+        ctypes.c_int(int(cfg.orthonormalize)),
+    ]
+    robust = cfg.loss.function != "None"
+    if robust:
+        r_buf = torch.empty(B, F, P, dtype=f32, device=dev)
+        vis_buf = torch.empty(B, F, P, dtype=f32, device=dev)
+        scalars += [
+            ctypes.c_int(_LOSS_KIND[cfg.loss.function]),
+            ctypes.c_int(_SCALER_KIND[cfg.loss.scaler]),
+            ctypes.c_float(cfg.loss.huber_c),
+            ctypes.c_float(cfg.loss.tdistribution_v),
+            r_buf, vis_buf,
+        ]
+    ptrs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a
+            for a in args + scalars + [out, chist, shist]]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library().vslam_solve_level_fused(
-            *ptrs,
-            ctypes.c_int(int(img.dtype == torch.bfloat16)),
-            ctypes.c_int(B), ctypes.c_int(F), ctypes.c_int(P), ctypes.c_int(H), ctypes.c_int(W),
-            ctypes.c_int(int(cfg.interpolation == "bilinear")),
-            ctypes.c_int(int(include_prior)),
-            ctypes.c_float(cfg.prior_weight),
-            ctypes.c_int(n_it),
-            ctypes.c_float(s.min_step_size),
-            ctypes.c_float(s._min_gradient),
-            ctypes.c_float(s._min_reduction),
-            ctypes.c_float(0.0 if min_rel is None else min_rel),
-            ctypes.c_int(int(min_rel is not None)),
-            ctypes.c_int(int(cfg.orthonormalize)),
-            ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(chist.data_ptr()),
-            ctypes.c_void_p(shist.data_ptr()),
-            ctypes.c_void_p(stream),
-        )
+        entry = library().vslam_solve_level_fused_robust if robust else library().vslam_solve_level_fused
+        err = entry(*ptrs, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused_solve kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    ROBUST_LAUNCHES += int(robust)
     return out, chist[:, :n_it], shist[:, :n_it]
 
 

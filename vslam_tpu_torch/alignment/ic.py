@@ -18,8 +18,9 @@ constant interest-point count, the sign-corrected 1/255^2 motion prior and
 the analytic 2x6 projection Jacobian (Warp.cpp:166-201).
 
 Samplers: "gather" (plain torch GN, the oracle) and "fused_gn" (the whole
-level as one CUDA kernel, `fused_solve.py`). Only the quadratic loss is
-ported so far.
+level as one CUDA kernel, `fused_solve.py`), with every loss and scaler of
+`solvers.loss`. The "fused" and "mxu" samplers, the per-iteration record for
+the visual log and the solver diagnostics are the next slice of the port.
 """
 
 from __future__ import annotations
@@ -37,10 +38,19 @@ from ..core.frame import Frame
 from ..core.se3 import SE3
 from ..solvers.gauss_newton import SolverConfig, SolverResult, solve_gauss_newton
 from ..solvers.linalg6 import inv_psd
+from ..solvers import loss as loss_mod
 from ..solvers.loss import LossConfig
 from ..solvers.normal_equations import NormalEquations
 
-__all__ = ["AlignmentConfig", "ICLevelData", "precompute_level", "solve_level", "align"]
+__all__ = [
+    "AlignmentConfig",
+    "ICLevelData",
+    "normalize_level",
+    "precompute_level",
+    "precompute_frame",
+    "solve_level",
+    "align",
+]
 
 # row-block height of the compact selection (fixed; the JAX package reads
 # VSLAM_COMPACT_BLOCK_ROWS with the same default)
@@ -63,6 +73,38 @@ class AlignmentConfig:
     sampler: str = "gather"  # "gather" | "fused_gn" in the port so far
     image_dtype: str = "float32"  # "bfloat16": the kernel samples a bf16 copy
     normalize_intensity: bool = False
+
+
+def _masked_stats(x: torch.Tensor):
+    """(mean, std) over the valid (nonzero) pixels of each image, keepdim
+    over the last two axes."""
+    valid = x > 0.0
+    n = torch.clamp(valid.sum(dim=(-2, -1), keepdim=True), min=1).to(x.dtype)
+    zero = torch.zeros_like(x)
+    m = torch.sum(torch.where(valid, x, zero), dim=(-2, -1), keepdim=True) / n
+    var = torch.sum(torch.where(valid, (x - m) ** 2, zero), dim=(-2, -1), keepdim=True) / n
+    return m, torch.sqrt(var)
+
+
+def _standardize(img: torch.Tensor) -> torch.Tensor:
+    """Per-image photometric standardization to mean 128 / spread 64 over
+    valid pixels (the exposure-robust mode, ``normalize_intensity``), so a
+    global gain and bias between frames cancel out of the residual."""
+    x = img.to(torch.float32)
+    m, s = _masked_stats(x)
+    return ((x - m) / (s + 1e-6) * 64.0 + 128.0).to(img.dtype)
+
+
+def normalize_level(inten: torch.Tensor, dIx: torch.Tensor, dIy: torch.Tensor):
+    """Standardize a reference level's template and scale its gradients by
+    the same gain, per image over any leading axes."""
+    _, s = _masked_stats(inten.to(torch.float32))
+    g = 64.0 / (s + 1e-6)
+    return (
+        _standardize(inten),
+        (dIx.to(torch.float32) * g).to(dIx.dtype),
+        (dIy.to(torch.float32) * g).to(dIy.dtype),
+    )
 
 
 class ICLevelData(NamedTuple):
@@ -209,6 +251,27 @@ def _precompute_compact(intensity, dIx, dIy, depth, cam: Camera, min_gradient, n
     return ICLevelData(pcl=pcl, J=J, templ=templ, mask=ok, n_constraints=ok.sum(-1).to(dtype))
 
 
+def precompute_frame(frame: Frame, cfg: AlignmentConfig) -> Tuple[ICLevelData, ...]:
+    """Per-level interest-point data of a frame, indexed like
+    ``frame.intensity`` (0 = finest); leaves keep the frame's leading axes.
+
+    The cacheable half of the aligner: the sequential scan computes a
+    frame's data once, when the frame is current, and reuses it as the last
+    frame's and, after a switch, the keyframe's (`align(..., ref_data=)`).
+    For a fixed config every frame gets the same point count P per level
+    (the compact path's fixed capacity), so cached data of different frames
+    select against each other with `torch.where`."""
+    out = []
+    for level in range(len(frame.intensity)):
+        budget = cfg.max_points >> (2 * level) if cfg.max_points else 0
+        inten, dIx, dIy = frame.intensity[level], frame.dIx[level], frame.dIy[level]
+        if cfg.normalize_intensity:
+            inten, dIx, dIy = normalize_level(inten, dIx, dIy)
+        out.append(precompute_level(inten, dIx, dIy, frame.depth[level], frame.cameras[level],
+                                    cfg.min_gradient, max_points=budget))
+    return tuple(out)
+
+
 def _warp_visibility(data: ICLevelData, rel: SE3, image_shape, cam_cur: Camera):
     """Warp + projection + visibility for (B, F, P) points at rel (B, F).
     Returns (u, v, visible), u and v zeroed where invisible."""
@@ -241,8 +304,12 @@ def _normalize_prior(A, b, chi2, n, rel: SE3, cfg: AlignmentConfig, x_pred) -> N
 
 def level_normal_equations(data, rel: SE3, image_cur, cam_cur, cfg, x_pred) -> NormalEquations:
     """Stacked NE, summed over the frame axis
-    (InverseCompositionalStacked.cpp:48-62), quadratic loss, gather
-    sampling. Returns leaves with leading axis B."""
+    (InverseCompositionalStacked.cpp:48-62), gather sampling. Returns leaves
+    with leading axis B.
+
+    Robust losses scale each (pair, frame) residual vector over its interest
+    mask, invisible points entering with r = 0, and weight invisible points
+    0 (InverseCompositional.cpp:129-137)."""
     H, W = image_cur.shape[-2:]
     u, v, visible = _warp_visibility(data, rel, (H, W), cam_cur)
     img = image_cur[:, None]  # (B, 1, H, W): one current image per pair
@@ -251,7 +318,12 @@ def level_normal_equations(data, rel: SE3, image_cur, cam_cur, cfg, x_pred) -> N
     else:
         iwxp = img_ops.nearest_sample(img.expand(-1, u.shape[1], -1, -1), u, v)
     r = torch.where(visible, iwxp - data.templ, torch.zeros_like(iwxp))
-    w = visible.to(image_cur.dtype)
+    if cfg.loss.function != "None":
+        scale = loss_mod.compute_scale(cfg.loss, r, data.mask)
+        r_std = (r - scale.offset[..., None]) / scale.scale[..., None]
+        w = torch.where(visible, loss_mod.compute_weights(cfg.loss, r_std), torch.zeros_like(r))
+    else:
+        w = visible.to(image_cur.dtype)
     Jw = data.J * w[..., None]
     A = Jw.transpose(-1, -2) @ data.J
     b = (Jw.transpose(-1, -2) @ r[..., None])[..., 0]
@@ -271,18 +343,17 @@ def _broadcast(g: SE3, like: SE3) -> SE3:
 
 
 def _check_supported(cfg: AlignmentConfig) -> None:
-    if cfg.loss.function != "None":
-        raise NotImplementedError(
-            f"loss {cfg.loss.function!r}: the port runs the quadratic loss only; "
-            "robust losses come with the robust whole-level kernel (ROADMAP.md, "
-            "kernel 1b)"
-        )
-    if cfg.normalize_intensity:
-        raise NotImplementedError("normalize_intensity is not ported yet (ROADMAP.md)")
     if cfg.sampler not in ("gather", "fused_gn"):
         raise NotImplementedError(
-            f"sampler {cfg.sampler!r} is not ported yet; use 'gather' or 'fused_gn'"
+            f"sampler {cfg.sampler!r} is not ported yet: the 'fused' and 'mxu' samplers "
+            "come with the next slice of the port (kernels fused_level_sample, "
+            "fused_level_ne and bilinear_sample_mxu_single, ROADMAP.md); use 'gather' "
+            "or 'fused_gn'"
         )
+    if cfg.loss.function not in ("None", "Huber", "Tukey", "tdistribution"):
+        raise ValueError(f"unknown loss {cfg.loss.function!r}")
+    if cfg.loss.scaler not in ("reference", "mad", "mean"):
+        raise ValueError(f"unknown scaler {cfg.loss.scaler!r}")
 
 
 def solve_level(data: ICLevelData, rel0: SE3, image_cur, cam_cur: Camera, cfg: AlignmentConfig, x_pred):
@@ -317,12 +388,22 @@ def _first_camera(cam: Camera, B: int) -> Camera:
     return Camera(*(c.reshape(B, -1)[:, 0] for c in cam))
 
 
-def align(ref_frames: Frame, cur_frame: Frame, rel_init: SE3, x_pred, cfg: AlignmentConfig):
+def align(
+    ref_frames: Optional[Frame],
+    cur_frame: Frame,
+    rel_init: SE3,
+    x_pred,
+    cfg: AlignmentConfig,
+    ref_data: Optional[Tuple[ICLevelData, ...]] = None,
+):
     """Coarse-to-fine alignment of B current frames against F stacked
     reference frames each (SE3Alignment.cpp:106-146).
 
     ref_frames leaves (B, F, ...); cur_frame leaves (B, ...); rel_init
-    (B, F); x_pred (B, F, 6) or None. Returns (rel (B, F), covariance
+    (B, F); x_pred (B, F, 6) or None. ``ref_data``, when given, is the
+    per-level data of the reference frames (leaves (B, F, ...), 0 = finest,
+    e.g. stacked `precompute_frame` results) and replaces their precompute;
+    ``ref_frames`` may then be None. Returns (rel (B, F), covariance
     (B, 6, 6) = A^-1 of the last accepted NE of the finest level that
     accepted one (SE3Alignment.cpp:101), valid (B,))."""
     _check_supported(cfg)
@@ -331,20 +412,23 @@ def align(ref_frames: Frame, cur_frame: Frame, rel_init: SE3, x_pred, cfg: Align
     rel = rel_init
     cov = torch.eye(6, dtype=dtype, device=device).expand(B, 6, 6).clone()
     valid_any = torch.zeros(B, dtype=torch.bool, device=device)
-    for level in range(len(ref_frames.intensity) - 1, -1, -1):
-        budget = cfg.max_points >> (2 * level) if cfg.max_points else 0
-        data = precompute_level(
-            ref_frames.intensity[level],
-            ref_frames.dIx[level],
-            ref_frames.dIy[level],
-            ref_frames.depth[level],
-            _first_camera(ref_frames.cameras[level], B),
-            cfg.min_gradient,
-            max_points=budget,
-        )
-        rel, result = solve_level(
-            data, rel, cur_frame.intensity[level], cur_frame.cameras[level], cfg, x_pred
-        )
+    n_levels = len(ref_data) if ref_data is not None else len(ref_frames.intensity)
+    for level in range(n_levels - 1, -1, -1):
+        if ref_data is not None:
+            data = ref_data[level]
+        else:
+            budget = cfg.max_points >> (2 * level) if cfg.max_points else 0
+            inten, dIx, dIy = ref_frames.intensity[level], ref_frames.dIx[level], ref_frames.dIy[level]
+            if cfg.normalize_intensity:
+                inten, dIx, dIy = normalize_level(inten, dIx, dIy)
+            data = precompute_level(
+                inten, dIx, dIy, ref_frames.depth[level],
+                _first_camera(ref_frames.cameras[level], B), cfg.min_gradient, max_points=budget,
+            )
+        image_cur = cur_frame.intensity[level]
+        if cfg.normalize_intensity:
+            image_cur = _standardize(image_cur)
+        rel, result = solve_level(data, rel, image_cur, cur_frame.cameras[level], cfg, x_pred)
         cov = torch.where(result.valid[:, None, None], inv_psd(result.A), cov)
         valid_any = valid_any | result.valid
     return rel, cov, valid_any

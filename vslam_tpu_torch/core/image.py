@@ -19,6 +19,7 @@ __all__ = [
     "sobel_y",
     "pyr_down",
     "median_blur_3x3_masked",
+    "masked_median",
 ]
 
 
@@ -177,3 +178,17 @@ def median_blur_3x3_masked(img: torch.Tensor, invalid: torch.Tensor) -> torch.Te
     out = torch.zeros_like(med)
     out[..., 1:-1, 1:-1] = med[..., 1:-1, 1:-1]
     return out
+
+
+def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median of ``values`` where ``mask`` is True, over the last axis
+    (leading axes are independent rows; `vslam_tpu.core.image.masked_median`
+    is the one-row case). Sort-based: invalid entries are pushed to +inf and
+    the two central ranks (n-1)//2 and n//2 of the n valid ones averaged;
+    0 where a row has no valid entry."""
+    s = torch.sort(torch.where(mask, values, torch.full_like(values, float("inf"))), dim=-1).values
+    n = mask.sum(-1, keepdim=True)
+    lo = torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), min=0)
+    hi = torch.div(n, 2, rounding_mode="floor")
+    med = 0.5 * (torch.gather(s, -1, lo) + torch.gather(s, -1, hi))
+    return torch.where(n > 0, med, torch.zeros_like(med))[..., 0]

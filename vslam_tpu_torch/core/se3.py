@@ -25,6 +25,7 @@ __all__ = [
     "so3_log",
     "exp",
     "log",
+    "adjoint",
     "orthonormalize",
 ]
 
@@ -153,6 +154,14 @@ def log(g: SE3) -> torch.Tensor:
     Vinv = eye - 0.5 * W + cot_term[..., None, None] * W2
     rho = (Vinv @ g.t.unsqueeze(-1)).squeeze(-1)
     return torch.cat([rho, phi], dim=-1)
+
+
+def adjoint(g: SE3) -> torch.Tensor:
+    """6x6 adjoint (..., 6, 6) mapping tangent vectors between frames,
+    ordering [rho; phi]: [[R, t^ R], [0, R]]."""
+    top = torch.cat([g.R, so3_hat(g.t) @ g.R], dim=-1)
+    bottom = torch.cat([torch.zeros_like(g.R), g.R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,13 @@
 // Whole-level Gauss-Newton solve of B RGB-D frame pairs, one thread block
-// per pair, quadratic loss.
+// per pair; one template, two entries (quadratic and robust loss).
 //
 // Replaces the Pallas TPU kernel `_solve_kernel` / `_solve_impl` of
 // vslam_tpu/alignment/fused_solve.py (`solve_level_fused`, quadratic-loss
-// entry). Per pair and per iteration it composes the shared delta with each
-// stacked frame's rel0, warps / projects / samples every interest point,
-// accumulates JᵀJ, Jᵀr and chi2, normalizes by the interest-point count,
+// entry) and, with ROBUST = true, `_solve_kernel_robust`
+// (vslam_tpu/alignment/fused_solve.py:520). Per pair and per iteration it
+// composes the shared delta with each stacked frame's rel0, warps /
+// projects / samples every interest point, accumulates JᵀWJ, JᵀWr and
+// chi2, normalizes by the interest-point count,
 // adds the motion prior, solves the 6x6 system by Cholesky with the
 // log-det guard, applies the reference's guards, rollback and convergence
 // tests (GaussNewton.cpp:33-102), updates delta <- delta . exp(-dx) and
@@ -25,6 +27,23 @@
 // read-only cache. One block per pair fills B of the 132 SMs (64 at the
 // production batch). Caching points in shared memory, splitting a pair over
 // a cluster and a parallel 6x6 tail are later work.
+//
+// Robust entry. Per iteration and stacked frame: pass A warps, samples and
+// stores r (0 where invisible) and the visibility in a (B, F, P) global
+// scratch; the scale is then computed over the frame's interest mask from
+// that cache, never re-sampling (median and MAD: a block-wide min/max, then
+// 24 value-domain bisection steps, each one block-wide count of
+// mask & value(r) <= mid for both central ranks at once; mean: two sums;
+// t-distribution: <= 30 fixed-point sums); pass B accumulates the weighted
+// Gram sums. What bounds it: per iteration the median scaler takes 26
+// block-wide passes over the frame's cached residuals (MAD 50, mean 2,
+// t-dist <= 30), each ending in two __syncthreads, on top of the two point
+// passes; the serial 6x6 tail runs as before. What this simple design does about it: each
+// thread only re-reads the entries it wrote itself (L1/L2-resident, 8 B per
+// point), the counts are integers (exact in any order), the two ranks share
+// every pass, and the order-dependent sums (mean, sum |r - med|, t-dist)
+// run in the fixed block order the plain version reproduces. Keeping the
+// cache in shared memory and a warp per rank are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,10 +74,21 @@ struct SolveParams {
   float min_step_size, min_gradient, min_reduction, min_relative_reduction;
   int use_min_rel;
   int orthonormalize;
+  // robust entry only
+  int loss_kind;    // 1 Huber, 2 Tukey, 3 t-distribution
+  int scaler_kind;  // Huber / Tukey: 0 reference (median), 1 MAD, 2 mean
+  float huber_c, tdist_v;
+  float* r_buf;      // (B, F, P) residual cache, 0 where invisible
+  float* vis_buf;    // (B, F, P) visibility cache, 0 or 1
   float* out;        // (B, kOut)
   float* chi2_hist;  // (B, max_iterations)
   float* step_hist;  // (B, max_iterations)
 };
+
+constexpr int kBisectSteps = 24;      // halvings of the [min, max] bracket per rank
+constexpr int kTdistIterations = 30;  // t-distribution fixed point budget
+constexpr float kTdistTol = 1e-5f;
+constexpr float kTukeyC = 4.6851f;
 
 // NaN-propagating max, as jnp.maximum / torch.maximum
 __device__ __forceinline__ float maxp(float a, float b) {
@@ -209,6 +239,202 @@ __device__ __forceinline__ void block_reduce(float (&acc)[kGram], float (*s_warp
   __syncthreads();
 }
 
+// Shared scratch of the robust entry's block-wide reductions.
+struct ReduceScratch {
+  float sum[kWarps + 1];
+  float minmax[2 * kWarps + 2];
+  int count[2 * kWarps + 2];
+};
+
+// Sum of one float per thread over the block in the kernel's order (a
+// shuffle-down tree per warp, then the warps in sequence, as
+// fused_solve._block_sum), returned to every thread.
+__device__ __forceinline__ float block_sum(float v, ReduceScratch& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if (lane == 0) s.sum[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.0f;
+    for (int w = 0; w < kWarps; ++w) t += s.sum[w];
+    s.sum[kWarps] = t;
+  }
+  __syncthreads();
+  return s.sum[kWarps];
+}
+
+// Block-wide min of mn and max of mx, returned to every thread.
+__device__ __forceinline__ void block_minmax(float& mn, float& mx, ReduceScratch& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = fminf(mn, __shfl_down_sync(0xffffffffu, mn, o));
+    mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, o));
+  }
+  if (lane == 0) {
+    s.minmax[2 * warp] = mn;
+    s.minmax[2 * warp + 1] = mx;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float a = s.minmax[0], b = s.minmax[1];
+    for (int w = 1; w < kWarps; ++w) {
+      a = fminf(a, s.minmax[2 * w]);
+      b = fmaxf(b, s.minmax[2 * w + 1]);
+    }
+    s.minmax[2 * kWarps] = a;
+    s.minmax[2 * kWarps + 1] = b;
+  }
+  __syncthreads();
+  mn = s.minmax[2 * kWarps];
+  mx = s.minmax[2 * kWarps + 1];
+}
+
+// Block-wide sums of two integer counts (exact in any order), returned to
+// every thread.
+__device__ __forceinline__ void block_count2(int& a, int& b, ReduceScratch& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, o);
+    b += __shfl_down_sync(0xffffffffu, b, o);
+  }
+  if (lane == 0) {
+    s.count[2 * warp] = a;
+    s.count[2 * warp + 1] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int x = 0, y = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      x += s.count[2 * w];
+      y += s.count[2 * w + 1];
+    }
+    s.count[2 * kWarps] = x;
+    s.count[2 * kWarps + 1] = y;
+  }
+  __syncthreads();
+  a = s.count[2 * kWarps];
+  b = s.count[2 * kWarps + 1];
+}
+
+// The statistic's domain: the cached residual, or its distance to `center`
+// (the MAD's second pass).
+__device__ __forceinline__ float stat_value(float r, bool absdev, float center) {
+  return absdev ? fabsf(r - center) : r;
+}
+
+// Masked median of value(r) over the frame's interest set: ranks
+// k_lo = floor((n-1)/2) and k_hi = floor(n/2) of the n = n_constraints
+// entries, each the smallest x of the 24-step bisection of [min, max] with
+// count(mask & value <= x) >= k + 1, averaged; 0 when n = 0
+// (fused_solve.py:259-297). Every thread reads only the cache entries it
+// wrote itself.
+__device__ float bisect_median(const SolveParams& p, const unsigned char* mask, const float* rb,
+                               float n, bool absdev, float center, ReduceScratch& s) {
+  float mn = INFINITY, mx = -INFINITY;
+  for (int q = threadIdx.x; q < p.P; q += kThreads) {
+    if (!mask[q]) continue;
+    const float v = stat_value(rb[q], absdev, center);
+    mn = fminf(mn, v);
+    mx = fmaxf(mx, v);
+  }
+  block_minmax(mn, mx, s);
+  const bool empty = !(mx >= mn);
+  float lo[2], hi[2];
+  lo[0] = lo[1] = empty ? 0.0f : mn;
+  hi[0] = hi[1] = empty ? 0.0f : mx;
+  const float k_lo = fmaxf(floorf((n - 1.0f) * 0.5f), 0.0f);
+  const float k_hi = fmaxf(floorf(n * 0.5f), 0.0f);
+  for (int step = 0; step < kBisectSteps; ++step) {
+    const float mid0 = 0.5f * (lo[0] + hi[0]), mid1 = 0.5f * (lo[1] + hi[1]);
+    int c0 = 0, c1 = 0;
+    for (int q = threadIdx.x; q < p.P; q += kThreads) {
+      if (!mask[q]) continue;
+      const float v = stat_value(rb[q], absdev, center);
+      c0 += v <= mid0;
+      c1 += v <= mid1;
+    }
+    block_count2(c0, c1, s);
+    if ((float)c0 >= k_lo + 1.0f) hi[0] = mid0; else lo[0] = mid0;
+    if ((float)c1 >= k_hi + 1.0f) hi[1] = mid1; else lo[1] = mid1;
+  }
+  return n > 0.0f ? 0.5f * (hi[0] + hi[1]) : 0.0f;
+}
+
+// Sum of |r - center| over the interest set, in the kernel's order.
+__device__ __forceinline__ float masked_absdev_sum(const SolveParams& p, const unsigned char* mask,
+                                                   const float* rb, float center,
+                                                   ReduceScratch& s) {
+  float acc = 0.0f;
+  for (int q = threadIdx.x; q < p.P; q += kThreads)
+    if (mask[q]) acc += fabsf(rb[q] - center);
+  return block_sum(acc, s);
+}
+
+// (offset, sigma) of the frame's cached residuals over its interest set,
+// the same value in every thread (fused_solve.py:234-338).
+__device__ void robust_scale(const SolveParams& p, const unsigned char* mask, const float* rb,
+                             float n, ReduceScratch& s, float& offset, float& sigma) {
+  if (p.loss_kind == 3) {
+    // t-distribution fixed point, whatever the scaler (Scaler.cpp:49-67)
+    const float n_safe = fmaxf(n, 1.0f), vp1 = p.tdist_v + 1.0f;
+    float sig = 1.0f, step = INFINITY;
+    for (int it = 0; it < kTdistIterations && step > kTdistTol; ++it) {
+      const float sigma2 = fmaxf(sig * sig, 1e-24f);
+      float acc = 0.0f;
+      for (int q = threadIdx.x; q < p.P; q += kThreads) {
+        if (!mask[q]) continue;
+        const float r2 = rb[q] * rb[q];
+        acc += r2 * vp1 / (p.tdist_v + r2 / sigma2);
+      }
+      const float sig_new = sqrtf(block_sum(acc, s) / n_safe);
+      step = fabsf(sig - sig_new);
+      sig = sig_new;
+    }
+    offset = 0.0f;
+    sigma = fmaxf(sig, 1e-12f);
+  } else if (p.scaler_kind == 2) {
+    // mean (Scaler.cpp:37-47); an empty set gives offset 0, scale 1
+    float acc = 0.0f;
+    for (int q = threadIdx.x; q < p.P; q += kThreads)
+      if (mask[q]) acc += rb[q];
+    const float mean = block_sum(acc, s) / fmaxf(n, 1.0f);
+    const float spread = sqrtf(masked_absdev_sum(p, mask, rb, mean, s) / fmaxf(n - 1.0f, 1.0f));
+    const bool empty = n < 1.0f;
+    offset = empty ? 0.0f : mean;
+    sigma = (empty || spread <= 0.0f) ? 1.0f : spread;
+  } else {
+    const float med = bisect_median(p, mask, rb, n, false, 0.0f, s);
+    offset = med;
+    if (p.scaler_kind == 1) {
+      // MAD: 1.4826 median |r - med|
+      const float sig = 1.4826f * bisect_median(p, mask, rb, n, true, med, s);
+      sigma = sig > 1e-6f ? sig : 1.0f;
+    } else {
+      // the reference's median scaler: sqrt(sum |r - med| / (n - 1))
+      const float spread = sqrtf(masked_absdev_sum(p, mask, rb, med, s) / fmaxf(n - 1.0f, 1.0f));
+      sigma = spread > 0.0f ? spread : 1.0f;
+    }
+  }
+}
+
+// M-estimator weight of the standardized residual (Loss.cpp; Huber's
+// outlier weight is the reference's 1/|r|).
+__device__ __forceinline__ float robust_weight(const SolveParams& p, float r) {
+  if (p.loss_kind == 1) {
+    const float a = fabsf(r);
+    return a < p.huber_c ? 1.0f : 1.0f / fmaxf(a, 1e-30f);
+  }
+  if (p.loss_kind == 2) {
+    const float rc = r / kTukeyC;
+    const float t = 1.0f - rc * rc;
+    return fabsf(r) < kTukeyC ? t * t : 0.0f;
+  }
+  return (p.tdist_v + 1.0f) / (p.tdist_v + r * r);
+}
+
 // T = rel0 . delta for frame bf
 __device__ __forceinline__ void compose_frame(const SolveParams& p, size_t bf, const float* Rd,
                                               const float* td, Pose& T) {
@@ -220,9 +446,10 @@ __device__ __forceinline__ void compose_frame(const SolveParams& p, size_t bf, c
   for (int i = 0; i < 3; ++i) T.t[i] += t0[i];
 }
 
-template <typename TImg, bool BILINEAR>
+template <typename TImg, bool BILINEAR, bool ROBUST>
 __global__ void __launch_bounds__(kThreads) solve_level_kernel(const SolveParams p) {
   __shared__ float s_warp[kWarps][kGram];
+  __shared__ ReduceScratch s_red;  // robust entry
   __shared__ float s_sum[kGram];
   __shared__ float s_delta[12];  // delta R (9), t (3)
   __shared__ float s_A[36];      // last accepted A, b
@@ -281,17 +508,47 @@ __global__ void __launch_bounds__(kThreads) solve_level_kernel(const SolveParams
       float acc[kGram];
 #pragma unroll
       for (int k = 0; k < kGram; ++k) acc[k] = 0.0f;
-      for (int q = tid; q < p.P; q += kThreads) {
-        if (!mask[q]) continue;
-        float u, v;
-        if (!warp_project(T, K, __ldg(pcl + 3 * q), __ldg(pcl + 3 * q + 1),
-                          __ldg(pcl + 3 * q + 2), p.H, p.W, u, v))
-          continue;
-        const float r = sample<BILINEAR>(img, p.W, u, v) - __ldg(templ + q);
-        float j[6];
+      if constexpr (ROBUST) {
+        // pass A: cache r (0 where invisible) and the visibility; each
+        // thread later re-reads only the entries it writes here
+        float* rb = p.r_buf + bf * p.P;
+        float* vb = p.vis_buf + bf * p.P;
+        for (int q = tid; q < p.P; q += kThreads) {
+          float r = 0.0f, vis = 0.0f, u, v;
+          if (mask[q] && warp_project(T, K, __ldg(pcl + 3 * q), __ldg(pcl + 3 * q + 1),
+                                      __ldg(pcl + 3 * q + 2), p.H, p.W, u, v)) {
+            r = sample<BILINEAR>(img, p.W, u, v) - __ldg(templ + q);
+            vis = 1.0f;
+          }
+          rb[q] = r;
+          vb[q] = vis;
+        }
+        // the scale over the interest set, from the cache
+        float offset, sigma;
+        robust_scale(p, mask, rb, p.n_constraints[bf], s_red, offset, sigma);
+        // pass B: weighted Gram sums over the visible points
+        for (int q = tid; q < p.P; q += kThreads) {
+          if (vb[q] == 0.0f) continue;
+          const float r = rb[q];
+          const float w = robust_weight(p, (r - offset) / sigma);
+          float j[6];
 #pragma unroll
-        for (int k = 0; k < 6; ++k) j[k] = __ldg(J + 6 * q + k);
-        gram_accumulate(acc, j, r);
+          for (int k = 0; k < 6; ++k) j[k] = __ldg(J + 6 * q + k);
+          gram_accumulate_weighted(acc, j, r, w);
+        }
+      } else {
+        for (int q = tid; q < p.P; q += kThreads) {
+          if (!mask[q]) continue;
+          float u, v;
+          if (!warp_project(T, K, __ldg(pcl + 3 * q), __ldg(pcl + 3 * q + 1),
+                            __ldg(pcl + 3 * q + 2), p.H, p.W, u, v))
+            continue;
+          const float r = sample<BILINEAR>(img, p.W, u, v) - __ldg(templ + q);
+          float j[6];
+#pragma unroll
+          for (int k = 0; k < 6; ++k) j[k] = __ldg(J + 6 * q + k);
+          gram_accumulate(acc, j, r);
+        }
       }
       block_reduce(acc, s_warp, s_sum);
 
@@ -382,27 +639,32 @@ __global__ void __launch_bounds__(kThreads) solve_level_kernel(const SolveParams
   }
 }
 
-template <typename TImg>
+template <typename TImg, bool ROBUST>
 void launch(const SolveParams& p, int bilinear, cudaStream_t stream) {
   if (bilinear)
-    solve_level_kernel<TImg, true><<<p.B, kThreads, 0, stream>>>(p);
+    solve_level_kernel<TImg, true, ROBUST><<<p.B, kThreads, 0, stream>>>(p);
   else
-    solve_level_kernel<TImg, false><<<p.B, kThreads, 0, stream>>>(p);
+    solve_level_kernel<TImg, false, ROBUST><<<p.B, kThreads, 0, stream>>>(p);
 }
 
-}  // namespace vslam
+template <bool ROBUST>
+int launch_checked(const SolveParams& p, int image_is_bf16, int bilinear, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (image_is_bf16)
+    launch<__nv_bfloat16, ROBUST>(p, bilinear, s);
+  else
+    launch<float, ROBUST>(p, bilinear, s);
+  return static_cast<int>(cudaGetLastError());
+}
 
-// C entry for ctypes. Launches on `stream` without synchronizing and returns
-// cudaGetLastError() (0 = cudaSuccess).
-extern "C" int vslam_solve_level_fused(
-    const void* pcl, const void* J, const void* templ, const void* mask,
-    const void* n_constraints, const void* rel0_R, const void* rel0_t, const void* x_pred,
-    const void* cam, const void* image, int image_is_bf16, int B, int F, int P, int H, int W,
-    int bilinear, int include_prior, float prior_weight, int max_iterations,
-    float min_step_size, float min_gradient, float min_reduction, float min_relative_reduction,
-    int use_min_rel, int orthonormalize, void* out, void* chi2_hist, void* step_hist,
-    void* stream) {
-  vslam::SolveParams p;
+SolveParams make_params(const void* pcl, const void* J, const void* templ, const void* mask,
+                        const void* n_constraints, const void* rel0_R, const void* rel0_t,
+                        const void* x_pred, const void* cam, const void* image, int B, int F,
+                        int P, int H, int W, int include_prior, float prior_weight,
+                        int max_iterations, float min_step_size, float min_gradient,
+                        float min_reduction, float min_relative_reduction, int use_min_rel,
+                        int orthonormalize, void* out, void* chi2_hist, void* step_hist) {
+  SolveParams p = {};
   p.pcl = static_cast<const float*>(pcl);
   p.J = static_cast<const float*>(J);
   p.templ = static_cast<const float*>(templ);
@@ -430,10 +692,49 @@ extern "C" int vslam_solve_level_fused(
   p.out = static_cast<float*>(out);
   p.chi2_hist = static_cast<float*>(chi2_hist);
   p.step_hist = static_cast<float*>(step_hist);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (image_is_bf16)
-    vslam::launch<__nv_bfloat16>(p, bilinear, s);
-  else
-    vslam::launch<float>(p, bilinear, s);
-  return static_cast<int>(cudaGetLastError());
+  return p;
+}
+
+}  // namespace vslam
+
+// C entries for ctypes. Each launches on `stream` without synchronizing and
+// returns cudaGetLastError() (0 = cudaSuccess).
+extern "C" int vslam_solve_level_fused(
+    const void* pcl, const void* J, const void* templ, const void* mask,
+    const void* n_constraints, const void* rel0_R, const void* rel0_t, const void* x_pred,
+    const void* cam, const void* image, int image_is_bf16, int B, int F, int P, int H, int W,
+    int bilinear, int include_prior, float prior_weight, int max_iterations,
+    float min_step_size, float min_gradient, float min_reduction, float min_relative_reduction,
+    int use_min_rel, int orthonormalize, void* out, void* chi2_hist, void* step_hist,
+    void* stream) {
+  const vslam::SolveParams p = vslam::make_params(
+      pcl, J, templ, mask, n_constraints, rel0_R, rel0_t, x_pred, cam, image, B, F, P, H, W,
+      include_prior, prior_weight, max_iterations, min_step_size, min_gradient, min_reduction,
+      min_relative_reduction, use_min_rel, orthonormalize, out, chi2_hist, step_hist);
+  return vslam::launch_checked<false>(p, image_is_bf16, bilinear, stream);
+}
+
+// The robust entry: loss_kind 1 Huber, 2 Tukey, 3 t-distribution;
+// scaler_kind 0 reference, 1 MAD, 2 mean; r_buf and vis_buf are (B, F, P)
+// f32 scratch the kernel overwrites.
+extern "C" int vslam_solve_level_fused_robust(
+    const void* pcl, const void* J, const void* templ, const void* mask,
+    const void* n_constraints, const void* rel0_R, const void* rel0_t, const void* x_pred,
+    const void* cam, const void* image, int image_is_bf16, int B, int F, int P, int H, int W,
+    int bilinear, int include_prior, float prior_weight, int max_iterations,
+    float min_step_size, float min_gradient, float min_reduction, float min_relative_reduction,
+    int use_min_rel, int orthonormalize, int loss_kind, int scaler_kind, float huber_c,
+    float tdist_v, void* r_buf, void* vis_buf, void* out, void* chi2_hist, void* step_hist,
+    void* stream) {
+  vslam::SolveParams p = vslam::make_params(
+      pcl, J, templ, mask, n_constraints, rel0_R, rel0_t, x_pred, cam, image, B, F, P, H, W,
+      include_prior, prior_weight, max_iterations, min_step_size, min_gradient, min_reduction,
+      min_relative_reduction, use_min_rel, orthonormalize, out, chi2_hist, step_hist);
+  p.loss_kind = loss_kind;
+  p.scaler_kind = scaler_kind;
+  p.huber_c = huber_c;
+  p.tdist_v = tdist_v;
+  p.r_buf = static_cast<float*>(r_buf);
+  p.vis_buf = static_cast<float*>(vis_buf);
+  return vslam::launch_checked<true>(p, image_is_bf16, bilinear, stream);
 }

@@ -1,6 +1,6 @@
 // Per-point device functions of the inverse-compositional residual pass:
 // SE(3) warp + pinhole projection + visibility, intensity sampling, and the
-// Gram accumulation of one point. Ports of `fused_ne._sample_chunk` and
+// (robustly weighted) Gram accumulation of one point. Ports of `fused_ne._sample_chunk` and
 // `fused_ne._gram_chunk` (vslam_tpu/alignment/fused_ne.py:113-231), shared
 // by the whole-level solve kernel (fused_solve.cu) and, later, by the ports
 // of `fused_level_ne` and `fused_level_sample`.
@@ -83,6 +83,25 @@ __device__ __forceinline__ void gram_accumulate(float (&acc)[kGram], const float
 #pragma unroll
   for (int a = 0; a < 6; ++a) acc[kGramB + a] += j[a] * r;
   acc[kGramChi2] += r * r;
+  acc[kGramCount] += 1.0f;
+}
+
+// Add one visible point with robust weight w: (J_a w) J_c, (J_a w) r and
+// (w r) r, in this order of rounding (the plain PyTorch version's).
+__device__ __forceinline__ void gram_accumulate_weighted(float (&acc)[kGram], const float (&j)[6],
+                                                         float r, float w) {
+  float wj[6];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) wj[a] = j[a] * w;
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+#pragma unroll
+    for (int b = a; b < 6; ++b) acc[k++] += wj[a] * j[b];
+  }
+#pragma unroll
+  for (int a = 0; a < 6; ++a) acc[kGramB + a] += wj[a] * r;
+  acc[kGramChi2] += w * r * r;
   acc[kGramCount] += 1.0f;
 }
 

@@ -17,15 +17,20 @@ from .alignment.ic import AlignmentConfig, ICLevelData
 from .core.camera import Camera
 from .core.frame import Frame
 from .core.se3 import SE3
+from .kalman.ekf_se3 import EkfState
+from .odometry.sequential import SequentialConfig
 from .solvers.gauss_newton import SolverConfig
 from .solvers.loss import LossConfig
 
 __all__ = [
     "frame_from_numpy",
     "level_data_from_numpy",
+    "level_data_tuple_from_numpy",
     "camera_from_numpy",
     "se3_from_numpy",
+    "ekf_state_from_numpy",
     "alignment_config_from_fields",
+    "sequential_config_from_fields",
 ]
 
 
@@ -65,6 +70,20 @@ def level_data_from_numpy(data, device="cpu") -> ICLevelData:
     )
 
 
+def level_data_tuple_from_numpy(levels, device="cpu"):
+    """A per-level tuple of ICLevelData (`precompute_frame`'s result)."""
+    return tuple(level_data_from_numpy(d, device) for d in levels)
+
+
+def ekf_state_from_numpy(ekf, device="cpu") -> EkfState:
+    return EkfState(
+        pose=se3_from_numpy(ekf.pose, device),
+        velocity=_t(ekf.velocity, device, torch.float32),
+        P=_t(ekf.P, device, torch.float32),
+        Q=_t(ekf.Q, device, torch.float32),
+    )
+
+
 def alignment_config_from_fields(d: dict) -> AlignmentConfig:
     """Rebuild the port's AlignmentConfig from `dataclasses.asdict` of the
     JAX package's config (nested SolverConfig and LossConfig included)."""
@@ -72,3 +91,11 @@ def alignment_config_from_fields(d: dict) -> AlignmentConfig:
     d["solver"] = SolverConfig(**d["solver"])
     d["loss"] = LossConfig(**d["loss"])
     return AlignmentConfig(**d)
+
+
+def sequential_config_from_fields(d: dict) -> SequentialConfig:
+    """Rebuild the port's SequentialConfig from `dataclasses.asdict` of the
+    JAX package's config (the nested AlignmentConfig included)."""
+    d = dict(d)
+    d["alignment"] = alignment_config_from_fields(d["alignment"])
+    return SequentialConfig(**d)

@@ -1,6 +1,7 @@
-"""Batched tracking (port of `vslam_tpu.parallel`; `align_pairs` so far)."""
+"""Batched tracking (port of `vslam_tpu.parallel`; `align_pairs` and
+`tracking_step` so far)."""
 
 from . import batched
-from .batched import align_pairs
+from .batched import align_pairs, tracking_step
 
-__all__ = ["batched", "align_pairs"]
+__all__ = ["batched", "align_pairs", "tracking_step"]
