@@ -32,24 +32,70 @@ Phases, each ending in torch.cuda.synchronize():
                 limits, folded into max_abs_err) with its device ms beside
                 the plain version's; last, under torch.profiler, the layers
                 of a step (record_function ranges) and the device-busy share
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}. Any failed check raises, so the
-script exits non-zero and prints no result. Imports neither jax nor
-vslam_tpu.
+  9. samplers — the per-iteration kernels against their plain versions on
+                the 64 pairs' finest level at a non-identity pose: sample
+                and NE in {nearest, bilinear} x {f32, bf16} at F=1 and F=2;
+                the mxu sampler at the warped points and at 4096 points per
+                pair on and outside the image border; bit for bit
+ 10. per-iteration path — align_pairs (production profile, sampler
+                "fused"), tracking_step ("fused", Huber) and align_pairs
+                ("mxu", bilinear, f32) on the 64 pairs: each new kernel
+                launched once per evaluation of the batched GN loop, no
+                whole-level launch, every pair valid, mean error < 0.01;
+                then each kernel against its plain version at the inputs
+                each level gave it, bit for bit
+ 11. visual log — RgbdAligner (F=2, 480x640, three frames of the odometry
+                profile, Huber, bilinear bf16, "fused_gn") with the
+                ImageWarped / Residual / Weights and SolverGN sinks on: one
+                image per evaluated iteration and level in each sink, one
+                sample launch per evaluation and no whole-level launch, the
+                coarsest residual falling >= 10 %, pose error < 0.01; with
+                the sinks off, 3 robust whole-level launches and a pose
+                within 2e-2 of the recorded one
+ 12. times    — each new kernel's device ms (profiler) beside its plain
+                version's and its bound at phase 10's level inputs, with
+                grid_sample beside the mxu kernel; align_pairs ms with
+                "fused", "mxu" and "fused_gn"; RgbdAligner ms, sinks on and off
+The line before the last is a JSON object describing each kernel, with the
+least time the card could take for its work (`_bound`); the last line is
+{"ok": true, "device": {...}}. Any failed check raises, so the script
+exits non-zero and prints no result. Imports neither jax nor vslam_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 
 H, W, FX = 480, 640, 525.0
 B = 64
 N_LEVELS = 3
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
+# 700 W limit): f32 outside the tensor cores, and HBM3.
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations per point, counted from the sources: the SE(3) warp,
+# projection and visibility test (warp_sample.cuh `warp_project`); a
+# nearest or bilinear sample (`sample`); the residual and one point's Gram
+# terms (`gram_accumulate`) or their weighted form
+# (`gram_accumulate_weighted`); the robust entry's scale and weight per
+# point and iteration (fused_solve.cu: 24 bisection passes counting two
+# ranks, the absolute deviation sum, the standardized residual and its
+# weight); and sample_mxu.cu's floors, weights, in-image tests and mixes.
+OPS_WARP = 32
+OPS_SAMPLE = {"nearest": 4, "bilinear": 15}
+OPS_GRAM = 58
+OPS_GRAM_W = 65
+OPS_ROBUST = 110
+OPS_MXU = 27
+TAPS = {"nearest": 1, "bilinear": 4}  # pixels read per sample
 
 
 def _sync():
@@ -147,6 +193,160 @@ def _kernel_device_ms(fn, reps, kernel_name):
     if not reps // 2 <= len(us) <= reps:
         raise AssertionError(f"profiler saw {len(us)} launches of {kernel_name}, expected {reps}")
     return sum(us) / 1e3 / len(us), len(us)
+
+
+def _calls_device_ms(fn, reps):
+    """(device ms per call of every kernel ``fn`` launches, their names)
+    from a torch.profiler window over ``reps`` calls: the time of a library
+    call whose kernels are not ours to name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError("profiler saw no device kernel of the library call")
+    us = sum(e.time_range.end - e.time_range.start for e in events)
+    return us / 1e3 / reps, sorted({e.name for e in events})
+
+
+@contextlib.contextmanager
+def _tap(module, name, sink):
+    """While the block runs, hand (args, result) of every call of
+    ``module.name`` to ``sink``; the port's callers look the function up on
+    its module at each call."""
+    fn = getattr(module, name)
+
+    def tapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        sink(args, out)
+        return out
+
+    setattr(module, name, tapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _max_abs_diff(got, want) -> float:
+    """Largest |got - want| over a tensor or a tuple of tensors (bool as
+    0 / 1); inf where shapes or NaN positions differ."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for a, b in zip(got, want, strict=True):
+        if a.shape != b.shape:
+            return float("inf")
+        a, b = a.double(), b.double()
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return float("inf")
+        if a.numel():
+            err = max(err, (a - b).abs().nan_to_num(0.0).max().item())
+    return err
+
+
+def _bound(ops: float, nbytes: float):
+    """(least ms the card could take, "operations" or "bytes") for ``ops``
+    f32 operations and ``nbytes`` bytes, each input read once and each
+    output written once, at the published peaks."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _point_bytes(data, with_ne: bool) -> int:
+    """Bytes of the level data a residual pass reads once: per point pcl
+    and mask (and J and the template for the NE), per frame the pose, per
+    pair the camera."""
+    Bp, F, P = data.mask.shape
+    return Bp * F * P * (13 + (28 if with_ne else 0)) + Bp * F * 48 + Bp * 16
+
+
+def _solve_work(args, result):
+    """(operations, bytes) one whole-level launch needs at these inputs:
+    each evaluated (pair, iteration) warps, samples and accumulates the
+    pair's interest points (robust: also the scale and weights) and reads
+    their pixel taps; the level data, prior and outputs move once."""
+    import torch
+
+    data, _, image, _, cfg, _ = args
+    Bp, F, _ = data.mask.shape
+    evals = torch.isfinite(result.chi2_history).sum(dim=1).double()
+    point_evals = float((evals * data.mask.sum(dim=(1, 2)).double()).sum())
+    robust = cfg.loss.function != "None"
+    per_point = OPS_WARP + OPS_SAMPLE[cfg.interpolation] + (OPS_GRAM_W + OPS_ROBUST if robust else OPS_GRAM)
+    bpp = 2 if cfg.image_dtype == "bfloat16" else 4
+    taps = min(point_evals * TAPS[cfg.interpolation], image.numel()) * bpp
+    n_it = result.chi2_history.shape[1]
+    nbytes = _point_bytes(data, True) + Bp * F * 28 + taps + Bp * 4 * (64 + 2 * n_it)
+    return point_evals * per_point, nbytes
+
+
+def _sample_work(args, out):
+    """(operations, bytes) of one fused_level_sample launch: every interest
+    point warped, every visible one sampled."""
+    data, _, image, _, interp = args
+    n_vis = float(out[1].sum())
+    ops = float(data.mask.sum()) * OPS_WARP + n_vis * OPS_SAMPLE[interp]
+    taps = min(n_vis * TAPS[interp], image.numel()) * image.element_size()
+    return ops, _point_bytes(data, False) + taps + data.mask.numel() * 5
+
+
+def _ne_work(args, out):
+    """(operations, bytes) of one fused_level_ne launch: every interest
+    point warped, every visible one sampled and accumulated."""
+    data, _, image, _, interp = args
+    n_vis = float(out[3].sum())
+    ops = float(data.mask.sum()) * OPS_WARP + n_vis * (OPS_SAMPLE[interp] + OPS_GRAM)
+    taps = min(n_vis * TAPS[interp], image.numel()) * image.element_size()
+    return ops, _point_bytes(data, True) + taps + out[3].numel() * 44 * 4
+
+
+def _mxu_work(args, out):
+    """(operations, bytes) of one bilinear_sample_mxu launch: u, v and the
+    sample per point, four taps each."""
+    img, u, _ = args
+    n = u.numel()
+    return n * OPS_MXU, n * 12 + min(4 * n, img.numel()) * 4
+
+
+class _Kernel(NamedTuple):
+    wrapper: Callable
+    plain: Callable
+    module: Any  # holds the wrapper and its launch count
+    counter: str
+    cuda_name: str  # the __global__ function, as the profiler names it
+    image_arg: int  # position of the image among the wrapper's arguments
+    work: Callable  # (args, result) -> (operations, bytes)
+    source: str
+    replaces: str
+
+
+def _new_kernels():
+    """The per-iteration kernels of phases 9-12, by name."""
+    from vslam_tpu_torch.alignment import fused_ne, pallas_kernels as pk
+
+    src = "vslam_tpu_torch/csrc/"
+    return {
+        "fused_level_sample": _Kernel(
+            fused_ne.fused_level_sample, fused_ne.fused_level_sample_plain, fused_ne,
+            "SAMPLE_LAUNCHES", "sample_level_kernel", 2, _sample_work, src + "fused_ne.cu",
+            "vslam_tpu/alignment/fused_ne.py:312"),
+        "fused_level_ne": _Kernel(
+            fused_ne.fused_level_ne, fused_ne.fused_level_ne_plain, fused_ne, "NE_LAUNCHES",
+            "level_ne_kernel", 2, _ne_work, src + "fused_ne.cu", "vslam_tpu/alignment/fused_ne.py:252"),
+        "bilinear_sample_mxu": _Kernel(
+            pk.bilinear_sample_mxu, pk.bilinear_sample_mxu_plain, pk, "MXU_LAUNCHES",
+            "sample_mxu_kernel", 0, _mxu_work, src + "sample_mxu.cu",
+            "vslam_tpu/alignment/pallas_kernels.py:37"),
+    }
 
 
 def _level0_problems(frames, xis, device):
@@ -323,10 +523,12 @@ def _pair_errors(rel, xis):
 
 
 def _reset_launches():
-    from vslam_tpu_torch.alignment import fused_solve
+    """Every kernel wrapper's launch count to 0."""
+    from vslam_tpu_torch.alignment import fused_ne, fused_solve, pallas_kernels
 
-    fused_solve.LAUNCHES = 0
-    fused_solve.ROBUST_LAUNCHES = 0
+    fused_solve.LAUNCHES = fused_solve.ROBUST_LAUNCHES = 0
+    fused_ne.SAMPLE_LAUNCHES = fused_ne.NE_LAUNCHES = 0
+    pallas_kernels.MXU_LAUNCHES = 0
 
 
 def _launches():
@@ -483,14 +685,15 @@ def _time_profile(profile, stream, camera, card, log):
     first chunk, each level's kernel held against the plain version and its
     device ms beside the plain version's. Returns (kernel ms, plain ms) by
     level, the kernel's largest pose-entry difference from the plain
-    version, and a function that prints the layers of a frame and the
-    device-busy share under the profiler."""
+    version, a function that prints the layers of a frame and the
+    device-busy share under the profiler, and (bound ms, what bounds it)
+    of the three solves."""
     from vslam_tpu_torch.alignment import fused_solve
     from vslam_tpu_torch.odometry.sequential import SequentialOdometry, stage_stream
 
     chunk, _, entry = PROFILES[profile]
     cfg = _odometry_cfg(profile)
-    first, chunks = stage_stream(iter(stream), chunk, camera.fx.device)
+    first, chunks = stage_stream(iter(stream), chunk)
     odo = SequentialOdometry(camera, cfg, chunk=chunk)
     odo.run_staged(first, chunks)
     staged, streamed = [], []
@@ -511,27 +714,20 @@ def _time_profile(profile, stream, camera, card, log):
     # the solve inputs the main path gives the kernel: the last frame of the
     # first chunk, recorded per level
     captured = {}
-    solve = fused_solve.solve_level_fused
-
-    def record(*args):
-        captured[args[2].shape[-1]] = args
-        return solve(*args)
-
-    fused_solve.solve_level_fused = record
-    try:
+    with _tap(fused_solve, "solve_level_fused", lambda args, _: captured.__setitem__(args[2].shape[-1], args)):
         odo.run_staged(first, chunks[:1])
-    finally:
-        fused_solve.solve_level_fused = solve
     _sync()
     widths = sorted(captured, reverse=True)  # level 0 (finest) first
     pose_tol = 1e-3 if cfg.alignment.image_dtype == "bfloat16" else 1e-4
     ms_k, ms_p = {}, {}
-    max_abs, failures = 0.0, []
+    max_abs, failures, work = 0.0, [], np.zeros(2)
     for level, w in enumerate(widths):
         args = captured[w]
         run_k = lambda: fused_solve.solve_level_fused(*args)  # noqa: E731
         run_p = lambda: fused_solve.solve_level_fused_plain(*args)  # noqa: E731
-        err, ok = _check(run_k(), run_p(), pose_tol, log,
+        out_k = run_k()
+        work += _solve_work(args, out_k[1])
+        err, ok = _check(out_k, run_p(), pose_tol, log,
                          f"{profile} profile level {level} {entry} kernel vs plain at the main path's inputs")
         max_abs = max(max_abs, err)
         if not ok:
@@ -561,7 +757,310 @@ def _time_profile(profile, stream, camera, card, log):
         log(f"{profile} profile layers per step, host time under torch.profiler (mean of {k} steps): "
             f"{parts}; outside the steps (first frame, fetch) {outside / k:.3f} ms per step {card}")
 
-    return ms_k, ms_p, max_abs, layers
+    return ms_k, ms_p, max_abs, layers, _bound(*work)
+
+
+def _samplers_vs_plain(problems, frames, kernels, log):
+    """Phase 9: each per-iteration kernel against its plain version on the
+    64 pairs' finest level, bit for bit. Sample and NE at F=1 (the
+    reference frame at the half-way pose) and F=2 (reference and half-way
+    frame) in {nearest, bilinear} x {f32, bf16}; mxu at the F=2 warped
+    points and at 4096 points per pair on and outside the image border.
+    Returns the largest |kernel - plain| by kernel."""
+    import torch
+
+    from vslam_tpu_torch.alignment import ic
+    from vslam_tpu_torch.core.se3 import SE3
+
+    data2, rel2, _ = problems["f2"]
+    rel1 = SE3(rel2.R[:, :1].contiguous(), rel2.t[:, :1].contiguous())
+    cur = frames["cur"]
+    img, cam = cur.intensity[0], cur.cameras[0]
+    err = dict.fromkeys(kernels, 0.0)
+    for F, (data, rel) in ((1, (problems["f1"][0], rel1)), (2, (data2, rel2))):
+        for dtype in (torch.float32, torch.bfloat16):
+            for interp in ("nearest", "bilinear"):
+                args = (data, rel, img.to(dtype), cam, interp)
+                errs = []
+                for name in ("fused_level_sample", "fused_level_ne"):
+                    k = kernels[name]
+                    errs.append(_max_abs_diff(k.wrapper(*args), k.plain(*args)))
+                    err[name] = max(err[name], errs[-1])
+                log(f"phase 9 F={F} {interp} {str(dtype)[6:]}: fused_level_sample max_abs_err "
+                    f"{errs[0]:.3e}, fused_level_ne {errs[1]:.3e} (P={data.mask.shape[-1]})")
+    u, v, vis = ic._warp_visibility(data2, rel2, img.shape[-2:], cam)
+    rng = np.random.default_rng(9)
+    edges_u = [-2.0, -1.0, -0.5, 0.0, 0.5, W - 1.5, W - 1.0, W - 0.5, W, W + 1.0]
+    edges_v = [-2.0, -1.0, -0.5, 0.0, 0.5, H - 1.5, H - 1.0, H - 0.5, H, H + 1.0]
+    n = 1024
+    bu = np.concatenate([rng.choice(edges_u, (B, n)), rng.uniform(-2, W + 1, (B, n)),
+                         rng.uniform(-W, 2 * W, (B, 2 * n))], 1)
+    bv = np.concatenate([rng.uniform(-2, H + 1, (B, n)), rng.choice(edges_v, (B, n)),
+                         rng.uniform(-H, 2 * H, (B, 2 * n))], 1)
+    k = kernels["bilinear_sample_mxu"]
+    points = {"warped": (u.reshape(B, -1), v.reshape(B, -1)),
+              "border": tuple(torch.as_tensor(x, dtype=torch.float32, device=img.device) for x in (bu, bv))}
+    for what, (pu, pv) in points.items():
+        got = k.wrapper(img, pu, pv)
+        e = _max_abs_diff(got, k.plain(img, pu, pv))
+        err["bilinear_sample_mxu"] = max(err["bilinear_sample_mxu"], e)
+        log(f"phase 9 bilinear_sample_mxu at {pu.shape[1]} {what} points per pair: max_abs_err {e:.3e}, "
+            f"zero samples {(got == 0).float().mean().item():.3f}")
+    log(f"phase 9: visible share at F=2 {vis.float().mean().item():.3f}")
+    if any(e != 0.0 for e in err.values()):
+        raise AssertionError(f"phase 9: kernel and plain differ: {err}")
+    return err
+
+
+def _counted_run(label, call, kernel, xis, log):
+    """Phase 10, one run: ``call()`` (a main-path entry point, returning
+    (rel (B,), valid (B,))) with every launch count at 0, recording each
+    level's solver history and the last arguments each level gave the
+    kernel's wrapper. Gates: the kernel launched once per evaluation of the
+    batched loop (per level the largest count of finite chi2 history
+    entries over the pairs, summed over the levels), no whole-level launch,
+    every pair valid, mean error < 0.01. Returns (launches, {image width:
+    args})."""
+    import torch
+
+    from vslam_tpu_torch.alignment import fused_solve, ic
+
+    hist, by_level = [], {}
+    _reset_launches()
+    with _tap(ic, "solve_level", lambda a, out: hist.append(out[1].chi2_history)), \
+            _tap(kernel.module, kernel.wrapper.__name__,
+                 lambda a, out: by_level.__setitem__(a[kernel.image_arg].shape[-1], a)):
+        rel, valid = call()
+        _sync()
+    launches = getattr(kernel.module, kernel.counter)
+    evaluations = sum(int(torch.isfinite(h).sum(dim=1).max()) for h in hist)
+    errs = _pair_errors(rel, xis)
+    log(f"phase 10 {label}: {kernel.wrapper.__name__} launches {launches}, batched-loop evaluations "
+        f"{evaluations} over {len(hist)} levels, whole-level launches {fused_solve.LAUNCHES}; valid "
+        f"{int(valid.sum())}/{B}; mean per-pair SE(3) error {errs.mean():.5f} (gate 0.01), max {errs.max():.5f}")
+    if not (launches == evaluations > 0 and len(hist) == N_LEVELS and fused_solve.LAUNCHES == 0):
+        raise AssertionError(f"phase 10 {label}: launches {launches}, evaluations {evaluations}, "
+                             f"whole-level {fused_solve.LAUNCHES}")
+    if not (bool(valid.all()) and errs.mean() < 0.01):
+        raise AssertionError(f"phase 10 {label}: an invalid pair or mean error {errs.mean()} >= 0.01")
+    return launches, by_level
+
+
+def _per_iteration_paths(frames, xis, kernels, log):
+    """Phase 10: the per-iteration samplers through the entry points at full
+    width, then each kernel against its plain version at the inputs each
+    level gave it. Returns ({kernel: launches}, {kernel: {width: args}},
+    {kernel: max_abs_err}, {sampler: align_pairs config})."""
+    import dataclasses
+
+    import torch
+
+    from vslam_tpu_torch.core import se3
+    from vslam_tpu_torch.core.se3 import SE3
+    from vslam_tpu_torch.kalman import ekf_se3
+    from vslam_tpu_torch.parallel.batched import align_pairs, tracking_step
+    from vslam_tpu_torch.solvers import LossConfig
+
+    device = frames["cur"].intensity[0].device
+    ref, cur = frames["ref"], frames["cur"]
+    prod = _production_cfg()
+    rel0 = SE3(torch.eye(3, device=device).expand(B, 3, 3).contiguous(), torch.zeros(B, 3, device=device))
+    x_pred = torch.zeros(B, 6, device=device)
+    ekf0 = ekf_se3.init(pose=se3.identity((B,), device=device))
+    dts = torch.full((B,), 1.0 / 30.0, device=device)
+    cfgs = {"fused": dataclasses.replace(prod, sampler="fused"),
+            "mxu": dataclasses.replace(prod, sampler="mxu", interpolation="bilinear", image_dtype="float32")}
+    huber = dataclasses.replace(prod, sampler="fused", loss=LossConfig("Huber"))
+
+    def pairs(cfg):
+        rel, _, valid = align_pairs(ref, cur, rel0, x_pred, cfg)
+        return rel, valid
+
+    def tracking():
+        _, rel, valid = tracking_step(ekf0, ref, cur, dts, huber)
+        return rel, valid
+
+    runs = {"fused_level_ne": ("align_pairs, production profile, sampler fused", lambda: pairs(cfgs["fused"])),
+            "fused_level_sample": ("tracking_step, Huber, sampler fused", tracking),
+            "bilinear_sample_mxu": ("align_pairs, sampler mxu, bilinear, f32", lambda: pairs(cfgs["mxu"]))}
+    launches, captured, err = {}, {}, {}
+    for name, (label, call) in runs.items():
+        launches[name], captured[name] = _counted_run(label, call, kernels[name], xis, log)
+    for name, by_level in captured.items():
+        k = kernels[name]
+        err[name] = 0.0
+        for width, args in sorted(by_level.items(), reverse=True):
+            e = _max_abs_diff(k.wrapper(*args), k.plain(*args))
+            err[name] = max(err[name], e)
+            log(f"phase 10 {name} at the last inputs of the {width}-wide level: max_abs_err {e:.3e}")
+    if any(e != 0.0 for e in err.values()):
+        raise AssertionError(f"phase 10: kernel and plain differ at the main path's inputs: {err}")
+    return launches, captured, err, cfgs
+
+
+# keyframe, last and current frame of the odometry profile for phase 11;
+# the prediction is the last frame's pose, so the solve absorbs the motion
+# of three frames
+VLOG_FRAMES = (0, 3, 6)
+VLOG_SINKS = ("ImageWarped", "Residual", "Weights")
+
+
+def _pose_gap(a: np.ndarray, b: np.ndarray) -> float:
+    from vslam_tpu_torch.core import lie_np
+
+    return float(np.linalg.norm(lie_np.log(lie_np.relative(a, b))))
+
+
+def _visual_log(poses, stream, camera, log):
+    """Phase 11: RgbdAligner.align at 480x640, F=2, with every visual-log
+    sink on and then off; gates in the module doc. Returns (sample
+    launches, robust whole-level launches with the sinks off, align(sinks_on)
+    for the timings)."""
+    import dataclasses
+
+    import torch
+
+    from vslam_tpu_torch.alignment import RgbdAligner, fused_ne, fused_solve
+    from vslam_tpu_torch.core.frame import create_frame
+    from vslam_tpu_torch.solvers import LossConfig
+    from vslam_tpu_torch.utils import log as vlog
+
+    device = camera.fx.device
+
+    def frame(k):
+        _, gray, depth = stream[k]
+        return create_frame(torch.as_tensor(gray, device=device).float(),
+                            torch.as_tensor(depth.astype(np.float32), device=device) * (1.0 / 5000.0),
+                            camera, n_levels=N_LEVELS)
+
+    kf, last, cur = VLOG_FRAMES
+    cfg = dataclasses.replace(_odometry_cfg("odometry").alignment, loss=LossConfig("Huber"))
+    aligner = RgbdAligner(cfg)
+    args = ([frame(kf), frame(last)], [poses[kf], poses[last]], frame(cur), poses[last])
+    got = {n: [] for n in VLOG_SINKS + ("SolverGN",)}
+    sinks = [vlog.log_img(n) for n in VLOG_SINKS] + [vlog.log_plt("SolverGN")]
+
+    def align(sinks_on: bool):
+        for s in sinks:
+            s.enabled = sinks_on
+            s.callback = (lambda name, x: got[name].append(x)) if sinks_on else None
+        try:
+            return aligner.align(*args)
+        finally:
+            for s in sinks:
+                s.enabled, s.callback = False, None
+
+    _reset_launches()
+    pose_rec, _, ok = align(True)
+    _sync()
+    samples, whole = fused_ne.SAMPLE_LAUNCHES, fused_solve.LAUNCHES
+    (payload,) = got["SolverGN"]
+    n_eval = np.isfinite(payload["chi2"]).sum(axis=1)  # per level, coarsest first
+    want = [(2, H >> lvl, W >> lvl) for i, lvl in enumerate(range(N_LEVELS - 1, -1, -1))
+            for _ in range(n_eval[i])]
+    shapes_ok = all([a.shape for a in got[n]] == want for n in VLOG_SINKS)
+
+    def mean_abs(a):
+        nz = np.abs(a)
+        return nz[nz > 0].mean()
+
+    coarse = got["Residual"][: n_eval[0]]
+    fall = 1.0 - mean_abs(coarse[-1]) / mean_abs(coarse[0])
+    err_rec = _pose_gap(pose_rec, poses[cur])
+    _reset_launches()
+    pose_off, _, ok_off = align(False)
+    _sync()
+    off = (fused_solve.LAUNCHES, fused_solve.ROBUST_LAUNCHES)
+    gap = _pose_gap(pose_rec, pose_off)
+    log(f"phase 11 RgbdAligner F=2 {H}x{W} frames {VLOG_FRAMES}, Huber, bilinear bf16, fused_gn, sinks on: "
+        f"evaluated iterations per level (coarsest first) {n_eval.tolist()}, images per sink "
+        f"{[len(got[n]) for n in VLOG_SINKS]} shaped as one per evaluation {shapes_ok}; "
+        f"fused_level_sample launches {samples}, whole-level launches {whole}; coarsest mean |r| "
+        f"{mean_abs(coarse[0]):.4f} -> {mean_abs(coarse[-1]):.4f} (fall {fall:.3f}, gate 0.10); pose "
+        f"error {err_rec:.5f} (gate 0.01), valid {ok}. Sinks off: whole-level launches (all, robust) "
+        f"{off}, pose {gap:.2e} from the recorded one (gate 2e-2), valid {ok_off}")
+    if not (ok and ok_off and shapes_ok and samples == int(n_eval.sum()) and whole == 0):
+        raise AssertionError("phase 11: images, launches or validity off with the sinks on")
+    if not (fall >= 0.10 and err_rec < 0.01 and off == (N_LEVELS, N_LEVELS) and gap < 2e-2):
+        raise AssertionError("phase 11: residual fall, pose error, sinks-off launches or pose gap off")
+    return samples, off[1], align
+
+
+def _time_samplers(kernels, captured, card, log):
+    """Phase 12, kernels: at phase 10's inputs of each level, each new
+    kernel's device ms (profiler, 20 launches) beside its plain version's
+    (events, best of two runs of 3 calls around the kernel's) and the
+    bound of its work; grid_sample beside the mxu kernel (device ms by the
+    profiler). Returns {kernel: entry fields of the kernels line}."""
+    import torch
+
+    out = {}
+    for name, k in kernels.items():
+        ms = plain = lib = ops = nbytes = 0.0
+        for width, args in sorted(captured[name].items(), reverse=True):
+            o, b = k.work(args, k.wrapper(*args))
+            ops, nbytes = ops + o, nbytes + b
+            run_k = lambda: k.wrapper(*args)  # noqa: E731
+            run_p = lambda: k.plain(*args)  # noqa: E731
+            run_p()
+            p1 = _events_ms(run_p, 3)
+            k_ms, seen = _kernel_device_ms(run_k, 20, k.cuda_name)
+            p2 = _events_ms(run_p, 3)
+            ms, plain = ms + k_ms, plain + min(p1, p2)
+            extra = ""
+            if name == "bilinear_sample_mxu":
+                img, u, v = args
+                Hl, Wl = img.shape[-2:]
+                grid = torch.stack([u / (Wl - 1) * 2 - 1, v / (Hl - 1) * 2 - 1], dim=-1)[:, None]
+                run_lib = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+                    img[:, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+                l_ms, names = _calls_device_ms(run_lib, 20)
+                lib += l_ms
+                gap = (run_lib()[:, 0, 0] - run_k()).abs().max().item()
+                extra = (f", grid_sample {l_ms:.4f} ms on the device (kernels {names}; max |difference| "
+                         f"from the kernel {gap:.2e})")
+            bound_l, by_l = _bound(o, b)
+            log(f"phase 12 {name} at the {args[k.image_arg].shape[-2]}x{width} level "
+                f"({tuple(args[k.image_arg].shape)} image): kernel {k_ms:.4f} ms on the device (profiler, "
+                f"{seen} of 20 records), plain {min(p1, p2):.3f} ms (events, runs {p1:.3f}, {p2:.3f}){extra}; "
+                f"bound {bound_l * 1e3:.3f} us ({by_l}: {o:.3e} operations, {b:.3e} bytes) {card}")
+        bound_ms, by = _bound(ops, nbytes)
+        out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": lib if name == "bilinear_sample_mxu" else None}
+    return out
+
+
+def _time_paths(frames, cfgs, align_vlog, card, log):
+    """Phase 12, paths: align_pairs ms per call (events, best of two runs of
+    3 calls after a warm-up) with each sampler, and RgbdAligner.align ms
+    (host clock, best of 2) with the sinks on and off."""
+    import dataclasses
+
+    import torch
+
+    from vslam_tpu_torch.core.se3 import SE3
+    from vslam_tpu_torch.parallel.batched import align_pairs
+
+    device = frames["cur"].intensity[0].device
+    rel0 = SE3(torch.eye(3, device=device).expand(B, 3, 3).contiguous(), torch.zeros(B, 3, device=device))
+    x_pred = torch.zeros(B, 6, device=device)
+    # fused_gn also with the mxu run's sampling (bilinear, f32 image)
+    samplers = dict(cfgs, fused_gn=_production_cfg())
+    samplers["fused_gn bilinear f32"] = dataclasses.replace(samplers["mxu"], sampler="fused_gn")
+    for name, cfg in samplers.items():
+        call = lambda: align_pairs(frames["ref"], frames["cur"], rel0, x_pred, cfg)  # noqa: E731
+        call()
+        runs = [_events_ms(call, 3) for _ in range(2)]
+        log(f"phase 12 align_pairs sampler {name}: {min(runs):.3f} ms per call of {B} pairs (runs "
+            f"{', '.join(f'{r:.3f}' for r in runs)}) {card}")
+    for on in (True, False):
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            align_vlog(on)
+            times.append((time.perf_counter() - t0) * 1e3)
+        log(f"phase 12 RgbdAligner.align F=2 {H}x{W}, sinks {'on' if on else 'off'}: {min(times):.3f} ms "
+            f"(host clock, runs {', '.join(f'{t:.3f}' for t in times)}) {card}")
 
 
 def result_line(kind: str) -> dict:
@@ -606,10 +1105,10 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    lib_path, ptxas = _build.build(verbose=True)
+    lib_paths, ptxas = _build.build(verbose=True)
     _build.library()
-    log(f"build: nvcc {' '.join(_build.NVCC_FLAGS)} -> {lib_path.name} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source, started together -> "
+        f"{', '.join(p.name for p in lib_paths)} in {time.perf_counter() - t0:.2f} s")
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
@@ -631,7 +1130,6 @@ def main() -> int:
     _sync()
     if failures:
         raise AssertionError(f"robust kernel and plain disagree beyond the limits: {failures}")
-    del problems
 
     # 5. main path: align_pairs
     cfg = _production_cfg()
@@ -679,7 +1177,9 @@ def main() -> int:
     t0 = time.perf_counter()
     streams = _odometry_streams()
     log(f"rendered {len(streams)} x {ODO_FRAMES} frames at {H}x{W} in {time.perf_counter() - t0:.1f} s")
-    camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2, device=device)
+    camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2)  # no device named: the card
+    if camera.fx.device.type != "cuda":
+        raise AssertionError(f"Camera.create with no device landed on {camera.fx.device}")
     launches_odo = {name: _run_profile(name, *streams[name], camera, log)[0] for name in PROFILES}
 
     # 8. times
@@ -693,11 +1193,14 @@ def main() -> int:
                                                n_levels=N_LEVELS), 10)
     inputs = _level_inputs(frames, cfg, rel0, x_pred)
     ms_k, ms_call, ms_p, ms_pre = {}, {}, {}, {}
+    work = np.zeros(2)
     for level, (pre, args) in sorted(inputs.items()):
         ms_pre[level] = _events_ms(lambda: ic.precompute_level(*pre), 10)
         run_k = lambda: fused_solve.solve_level_fused(*args)  # noqa: E731
         run_p = lambda: fused_solve.solve_level_fused_plain(*args)  # noqa: E731
-        err, ok = _check(run_k(), run_p(), 1e-3, log,
+        out_k = run_k()
+        work += _solve_work(args, out_k[1])
+        err, ok = _check(out_k, run_p(), 1e-3, log,
                          f"align_pairs level {level} kernel vs plain at the main path's inputs")
         if not ok:
             raise AssertionError(f"align_pairs level {level}: kernel and plain disagree")
@@ -718,16 +1221,36 @@ def main() -> int:
         f"{sum(ms_call.values()):.3f} ms (kernel on the device {sum(ms_k.values()):.3f} ms), rest "
         f"{rest:.3f} ms of {ms_align:.3f} ms; building the {B} current frames (outside "
         f"align_pairs) {ms_frame:.3f} ms {card}")
+    bound_pairs = _bound(*work)
     profile_times = {name: _time_profile(name, streams[name][1], camera, card, log) for name in PROFILES}
-    ms_k_robust, ms_p_robust, err_robust, _ = profile_times["robust"]
+    ms_k_robust, ms_p_robust, err_robust, _, bound_robust = profile_times["robust"]
     max_abs = max(max_abs, profile_times["odometry"][2])
     max_abs_robust = max(max_abs_robust, err_robust)
+
+    # 9. the per-iteration kernels against plain, finest level
+    kernels = _new_kernels()
+    err_new = _samplers_vs_plain(problems, frames, kernels, log)
+    del problems
+    _sync()
+
+    # 10. the per-iteration path at full width
+    launches_new, captured, err_path, cfgs = _per_iteration_paths(frames, xis, kernels, log)
+    err_new = {k: max(e, err_path[k]) for k, e in err_new.items()}
+
+    # 11. the visual log at full width
+    samples_vlog, robust_vlog, align_vlog = _visual_log(*streams["odometry"], camera, log)
+    launches_new["fused_level_sample"] += samples_vlog
+
+    # 12. times of the new kernels and paths
+    times_new = _time_samplers(kernels, captured, card, log)
+    _time_paths(frames, cfgs, align_vlog, card, log)
     for name in PROFILES:  # the long profiler windows last: no kernel timing follows them
         profile_times[name][3]()
     _sync()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [{
+    # ms and bound_ms: one launch at each of the 3 levels, summed
+    entries = [{
         "name": "solve_level_fused",
         "route": "cuda",
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
@@ -736,16 +1259,26 @@ def main() -> int:
         "max_abs_err": max_abs,
         "ms": sum(ms_k.values()),
         "plain_ms": sum(ms_p.values()),
+        "bound_ms": bound_pairs[0],
+        "bound_by": bound_pairs[1],
+        "library_ms": None,
     }, {
         "name": "solve_level_fused_robust",
         "route": "cuda",
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:520",
-        "launches": launches_track[1] + launches_odo["robust"],
+        "launches": launches_track[1] + launches_odo["robust"] + robust_vlog,
         "max_abs_err": max_abs_robust,
         "ms": sum(ms_k_robust.values()),
         "plain_ms": sum(ms_p_robust.values()),
-    }]}), flush=True)
+        "bound_ms": bound_robust[0],
+        "bound_by": bound_robust[1],
+        "library_ms": None,
+    }]
+    for name, k in kernels.items():
+        entries.append({"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+                        "launches": launches_new[name], "max_abs_err": err_new[name], **times_new[name]})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps(result_line(torch.cuda.get_device_name(0))), flush=True)
     return 0
 

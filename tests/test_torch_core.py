@@ -111,7 +111,7 @@ def test_camera_project_backproject_scale_match_jax():
     p[:8, 2] = -np.abs(p[:8, 2])  # behind the camera: masked, finite uv
     p[8, 2] = 0.0
     cj = jcam.Camera.create(FX, FX * 1.1, 26.0, 18.0)
-    ct = tcam.Camera.create(FX, FX * 1.1, 26.0, 18.0)
+    ct = tcam.Camera.create(FX, FX * 1.1, 26.0, 18.0, device="cpu")
     uvj, okj = jcam.project(cj, jnp.asarray(p))
     uvt, okt = tcam.project(ct, _t(p))
     np.testing.assert_array_equal(okt.numpy(), _np(okj))
@@ -228,8 +228,8 @@ def test_create_frame_matches_jax():
     inten, depth = _rendered(np.eye(4))
     fj = j_create_frame(jnp.asarray(inten), jnp.asarray(depth),
                         jcam.Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2), n_levels=3)
-    ft = t_create_frame(_t(inten), _t(depth), tcam.Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2),
-                        n_levels=3)
+    ft = t_create_frame(_t(inten), _t(depth),
+                        tcam.Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2, device="cpu"), n_levels=3)
     for lvl in range(3):
         np.testing.assert_allclose(ft.intensity[lvl].numpy(), _np(fj.intensity[lvl]), atol=1e-4)
         np.testing.assert_array_equal(ft.depth[lvl].numpy(), _np(fj.depth[lvl]))
@@ -241,7 +241,7 @@ def test_create_frame_matches_jax():
 
 def test_create_frame_batched_equals_per_frame():
     """A (B, H, W) batch builds the same pyramid as B single frames."""
-    cam = tcam.Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    cam = tcam.Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2, device="cpu")
     pairs = [_rendered(np.eye(4), seed=s) for s in (1, 2)]
     singles = [t_create_frame(_t(i), _t(d), cam) for i, d in pairs]
     batched = t_create_frame(_t(np.stack([i for i, _ in pairs])), _t(np.stack([d for _, d in pairs])), cam)

@@ -1,12 +1,13 @@
-"""The whole-level GN CUDA kernel (both entries: quadratic and robust loss)
-against its plain PyTorch version, on the card. Marked `cuda`; skips where torch sees no CUDA device. The machine with
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the whole-level GN kernel (quadratic and robust entries), the
+per-iteration sample and NE kernels and the mxu sampler. Marked `cuda`; skips where torch sees no CUDA device. The machine with
 the card has no JAX, which tests/conftest.py imports, so run it there as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The kernel is compiled with -fmad=false and the plain version evaluates the
-kernel's expressions in its order (thread-strided sums, a shuffle tree,
-warps in sequence), so the two are compared bit for bit."""
+The kernels are compiled with -fmad=false and the plain versions evaluate
+the kernels' expressions in their order (thread-strided sums, a shuffle
+tree, warps in sequence), so the two are compared bit for bit."""
 
 import dataclasses
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from vslam_tpu_torch.alignment import fused_solve
+from vslam_tpu_torch.alignment import fused_ne, fused_solve, pallas_kernels
 from vslam_tpu_torch.alignment import ic
 from vslam_tpu_torch.alignment.aligner import stack_frames
 from vslam_tpu_torch.core import lie_np
@@ -174,3 +175,71 @@ def test_align_pairs_launches_once_per_level(device):
     T[:3, 3] = rel.t[0].double().cpu().numpy()
     assert np.linalg.norm(lie_np.log(T) - xi) < 0.01
     torch.testing.assert_close(rel.t, plain[0].t, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize(
+    "F,max_points,interpolation,image_dtype",
+    [
+        (1, 300, "nearest", "float32"),  # P not a multiple of 256
+        (1, 100, "bilinear", "bfloat16"),  # P < one block of threads
+        (2, 1200, "bilinear", "float32"),
+        (2, 600, "nearest", "bfloat16"),
+        (3, 600, "bilinear", "bfloat16"),
+    ],
+)
+def test_fused_ne_kernels_equal_plain_bit_for_bit(device, F, max_points, interpolation, image_dtype):
+    data, rel, img, cam, _ = _problem(device, 5, F, max_points)
+    if image_dtype == "bfloat16":
+        img = img.to(torch.bfloat16)
+    args = (data, rel, img, cam, interpolation)
+    before = (fused_ne.SAMPLE_LAUNCHES, fused_ne.NE_LAUNCHES)
+    sample_k, sample_p = fused_ne.fused_level_sample(*args), fused_ne.fused_level_sample_plain(*args)
+    ne_k, ne_p = fused_ne.fused_level_ne(*args), fused_ne.fused_level_ne_plain(*args)
+    torch.cuda.synchronize()
+    assert (fused_ne.SAMPLE_LAUNCHES, fused_ne.NE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert 0.3 < sample_k[1].float().mean().item() < 1.0
+    for a, b in zip(sample_k + ne_k, sample_p + ne_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_mxu_kernel_equals_plain_bit_for_bit(device):
+    rng = np.random.default_rng(5)
+    B, M = 3, 5000
+    img = torch.as_tensor(rng.uniform(0, 255, (B, H, W)).astype(np.float32), device=device)
+    u = torch.as_tensor(rng.uniform(-3, W + 2, (B, M)).astype(np.float32), device=device)
+    v = torch.as_tensor(rng.uniform(-3, H + 2, (B, M)).astype(np.float32), device=device)
+    u[:, :8] = torch.tensor([-1.0, -0.5, 0.0, W - 1.0, W - 0.5, W, -1e6, 1e6], device=device)
+    before = pallas_kernels.MXU_LAUNCHES
+    got = pallas_kernels.bilinear_sample_mxu(img, u, v)
+    want = pallas_kernels.bilinear_sample_mxu_plain(img, u, v)
+    torch.cuda.synchronize()
+    assert pallas_kernels.MXU_LAUNCHES == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert bool((got == 0).any()) and bool((got != 0).any())
+
+
+def test_align_pairs_per_iteration_samplers_launch_every_iteration(device):
+    from vslam_tpu_torch.parallel.batched import align_pairs
+
+    K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    cam = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2, device=device)
+    xi = np.array([0.01, -0.01, 0.005, 0.004, -0.003, 0.002])
+    frames = []
+    for pose in (np.eye(4), lie_np.exp(xi)):
+        inten, depth = synthetic.render(K, pose, (H, W))
+        frames.append(create_frame(torch.as_tensor(inten, device=device)[None],
+                                   torch.as_tensor(depth, device=device)[None], cam, n_levels=3))
+    rel0 = SE3(torch.eye(3, device=device)[None], torch.zeros(1, 3, device=device))
+    for sampler, counter in (("fused", lambda: fused_ne.NE_LAUNCHES),
+                             ("mxu", lambda: pallas_kernels.MXU_LAUNCHES)):
+        cfg = ic.AlignmentConfig(min_gradient=10.0, sampler=sampler, max_points=2048,
+                                 include_prior=False, interpolation="bilinear",
+                                 solver=SolverConfig(30, 1e-11, min_relative_reduction=1e-4))
+        before = (counter(), fused_solve.LAUNCHES)
+        rel, cov, valid = align_pairs(frames[0], frames[1], rel0, None, cfg)
+        torch.cuda.synchronize()
+        assert counter() - before[0] >= 3 and fused_solve.LAUNCHES == before[1]
+        T = np.eye(4)
+        T[:3, :3] = rel.R[0].double().cpu().numpy()
+        T[:3, 3] = rel.t[0].double().cpu().numpy()
+        assert bool(valid[0]) and np.linalg.norm(lie_np.log(T) - xi) < 0.01

@@ -11,9 +11,11 @@ what `solve_level_fused` runs on CPU tensors) is held against the JAX
 * F=1, bilinear, bf16 image
 
 Tolerances: valid equal; iterations within +-1 (sums run in another
-order); pose ||log(T_jax^-1 T_port)|| below 1e-4 in f32 and 2e-2 in bf16
-(the `test_alignment.py` bf16 budget: the TPU kernel also rounds its
-bilinear weights to bf16, the port does not); A within rtol 1e-3.
+order); pose ||log(T_jax^-1 T_port)|| below 1e-4 in f32 and 1e-3 in bf16
+(both round the bilinear row weights to bf16, but a one-ulp difference in
+a warped row can move a weight across a bf16 rounding tie, see
+test_torch_fused_ne.py); A within rtol 1e-3; the first iteration's chi2
+within rtol 1e-4.
 """
 
 import dataclasses
@@ -135,13 +137,11 @@ def _assert_parity(name, jax_out, port_out):
     assert it_j >= 5, f"{name}: a parity problem should take several iterations"
     d = np.linalg.norm(lie_np.log(lie_np.inv(_pose(rel_j.R[0], rel_j.t[0]))
                                   @ _pose(rel_t.R[0, 0], rel_t.t[0, 0])))
-    assert d < (2e-2 if "bf16" in name else 1e-4), d
+    assert d < (1e-3 if "bf16" in name else 1e-4), d
     A_j = res_j.A
     np.testing.assert_allclose(res_t.A[0].numpy(), A_j, rtol=1e-3, atol=1e-6 * np.abs(A_j).max())
     # the first evaluated iteration sees the same state in both packages
-    # (bf16: the TPU kernel's bf16 bilinear weights move chi2 by ~1e-3)
-    np.testing.assert_allclose(res_t.chi2_history[0, 0].item(), res_j.chi2_history[0],
-                               rtol=5e-3 if "bf16" in name else 1e-4)
+    np.testing.assert_allclose(res_t.chi2_history[0, 0].item(), res_j.chi2_history[0], rtol=1e-4)
 
 
 @pytest.mark.parametrize("name", list(CASES))

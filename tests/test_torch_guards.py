@@ -1,6 +1,7 @@
 """Guards of the port's boundaries: it imports without JAX, its kernel
-wrapper never falls back silently, what it does not port yet raises, and
-chip_smoke's last line keeps the contract's keys."""
+wrappers never fall back silently, its entry points default to the card,
+what it does not port yet raises, and chip_smoke's last line keeps the
+contract's keys."""
 
 import ast
 import dataclasses
@@ -9,6 +10,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,13 +18,14 @@ from vslam_tpu.alignment.ic import AlignmentConfig as JAlignmentConfig
 from vslam_tpu.solvers import LossConfig as JLossConfig
 from vslam_tpu.solvers import SolverConfig as JSolverConfig
 from vslam_tpu_torch import _build, interop
-from vslam_tpu_torch.alignment import fused_solve
+from vslam_tpu_torch.alignment import fused_ne, fused_solve, pallas_kernels
 from vslam_tpu_torch.alignment import ic as tic
 from vslam_tpu_torch.alignment.ic import ICLevelData
+from vslam_tpu_torch.core import se3
 from vslam_tpu_torch.core.camera import Camera
 from vslam_tpu_torch.core.se3 import SE3
-from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry
-from vslam_tpu_torch.solvers import LossConfig
+from vslam_tpu_torch.kalman import ekf_se3
+from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry, stage_stream
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "vslam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -95,20 +98,66 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
         fused_solve.solve_level_fused(data, rel0, img, cam, tic.AlignmentConfig(sampler="fused_gn"), None)
 
 
-@pytest.mark.parametrize(
-    "cfg,what",
-    [
-        (tic.AlignmentConfig(sampler="fused", loss=LossConfig("Huber")), "sampler"),
-        (tic.AlignmentConfig(sampler="mxu", loss=LossConfig("Tukey")), "sampler"),
-        (tic.AlignmentConfig(sampler="mxu"), "sampler"),
-        (tic.AlignmentConfig(sampler="fused"), "sampler"),
-        (tic.AlignmentConfig(sampler="fused", normalize_intensity=True), "next slice"),
-    ],
-)
-def test_unported_options_raise(cfg, what):
+def _launch_sample(device):
+    data, rel, img, cam = _tiny_problem(device)
+    return fused_ne._launch_sample, fused_ne.fused_level_sample, (data, rel, img, cam, "bilinear")
+
+
+def _launch_ne(device):
+    data, rel, img, cam = _tiny_problem(device)
+    return fused_ne._launch_ne, fused_ne.fused_level_ne, (data, rel, img, cam, "nearest")
+
+
+def _launch_mxu(device):
+    _, _, img, _ = _tiny_problem(device)
+    uv = torch.zeros(img.shape[0], 7, device=device)
+    return pallas_kernels._launch, pallas_kernels.bilinear_sample_mxu, (img, uv, uv)
+
+
+def _launches():
+    return fused_ne.SAMPLE_LAUNCHES, fused_ne.NE_LAUNCHES, pallas_kernels.MXU_LAUNCHES
+
+
+@pytest.mark.parametrize("kernel", [_launch_sample, _launch_ne, _launch_mxu],
+                         ids=["fused_level_sample", "fused_level_ne", "bilinear_sample_mxu"])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_new_kernel_launchers_refuse_non_cuda_tensors(kernel, device):
+    """The launcher of each per-iteration kernel refuses CPU tensors before
+    any build or launch (the wrapper routes those to the plain version), and
+    the wrapper refuses a tensor that is neither on the CPU nor on CUDA
+    instead of running the plain version on it."""
+    launch, wrapper, args = kernel(device)
+    before = _launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        (launch if device == "cpu" else wrapper)(*args)
+    assert _launches() == before
+
+
+def test_unknown_sampler_raises():
     data, rel0, img, cam = _tiny_problem()
-    with pytest.raises(NotImplementedError, match=what):
-        tic.solve_level(data, rel0, img, cam, cfg, None)
+    with pytest.raises(ValueError, match="sampler"):
+        tic.solve_level(data, rel0, img, cam, tic.AlignmentConfig(sampler="onehot"), None)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: Camera.create(1.0, 1.0, 0.0, 0.0).fx,
+        lambda: se3.identity().R,
+        lambda: ekf_se3.init().P,
+        lambda: stage_stream(iter([(0, np.zeros((4, 6), np.uint8), np.zeros((4, 6), np.uint16))] * 2),
+                             1)[1][0].intensity,
+    ],
+    ids=["Camera.create", "se3.identity", "ekf_se3.init", "stage_stream"],
+)
+def test_entry_points_default_to_the_card(make):
+    """With no device named, an entry point puts its tensors on CUDA, and
+    without CUDA it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        assert make().is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()
 
 
 @pytest.mark.parametrize(
@@ -120,7 +169,7 @@ def test_unported_options_raise(cfg, what):
     ],
 )
 def test_unported_sequential_options_raise(kwargs, cfg, what):
-    cam = Camera.create(100.0, 100.0, 31.5, 23.5)
+    cam = Camera.create(100.0, 100.0, 31.5, 23.5, device="cpu")
     with pytest.raises(NotImplementedError, match=what):
         SequentialOdometry(cam, cfg, **kwargs)
 
@@ -140,7 +189,8 @@ def test_chip_smoke_result_line_keeps_the_contract():
 def test_build_names_the_hopper_target_and_refuses_without_nvcc(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-fmad=false" in _build.NVCC_FLAGS
-    assert {p.name for p in _build.SRC_DIR.iterdir()} >= {"fused_solve.cu", "warp_sample.cuh"}
+    assert {p.name for p in _build.SRC_DIR.iterdir()} >= {
+        "fused_solve.cu", "fused_ne.cu", "sample_mxu.cu", "warp_sample.cuh"}
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"  # inside .gitignore's build/
     import torch.utils.cpp_extension as cpp_ext
 

@@ -79,7 +79,7 @@ def _ate(poses, results):
 
 
 def _port(cfg, chunk=CHUNK):
-    return tseq.SequentialOdometry(Camera.create(FX, FX, CX, CY),
+    return tseq.SequentialOdometry(Camera.create(FX, FX, CX, CY, device="cpu"),
                                    interop.sequential_config_from_fields(dataclasses.asdict(cfg)),
                                    chunk=chunk)
 
@@ -123,7 +123,7 @@ def test_run_staged_equals_run(stream):
     _, items = stream
     odo = _port(CONFIGS["huber"])
     streamed = odo.run(iter(items))
-    first, chunks = tseq.stage_stream(iter(items), CHUNK)
+    first, chunks = tseq.stage_stream(iter(items), CHUNK, device="cpu")
     assert [len(sc.stamps) for sc in chunks] == [4, 3] and chunks[1].depth.shape == (3, H, W)
     assert chunks[0].depth.dtype == torch.int16  # uint16 bits, widened on the device
     staged = odo.run_staged(first, chunks)
@@ -171,7 +171,7 @@ def test_dead_slot_passes_the_state_through(stream):
     last pose, flagged neither valid nor keyframe."""
     _, items = stream
     cfg = interop.sequential_config_from_fields(dataclasses.asdict(CONFIGS["kalman"]))
-    cam = Camera.create(FX, FX, CX, CY)
+    cam = Camera.create(FX, FX, CX, CY, device="cpu")
     state0 = tseq.init_state(items[0][1], items[0][2], cam, cfg)
     sc = tseq._stage_chunk(items[1:3], items[0][0], "cpu")
     args = (sc.intensity[:, None], sc.depth[:, None], sc.dts[:, None])
@@ -188,7 +188,7 @@ def test_live_none_equals_all_live(stream):
     the result is that of an all-True mask, bit for bit."""
     _, items = stream
     cfg = interop.sequential_config_from_fields(dataclasses.asdict(CONFIGS["kalman"]))
-    cam = Camera.create(FX, FX, CX, CY)
+    cam = Camera.create(FX, FX, CX, CY, device="cpu")
     state0 = tseq.init_state(items[0][1], items[0][2], cam, cfg)
     sc = tseq._stage_chunk(items[1:4], items[0][0], "cpu")
     args = (sc.intensity[:, None], sc.depth[:, None], sc.dts[:, None])

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The sources in `csrc/` are compiled at first use by nvcc into one shared
-library with a plain C interface, loaded with ctypes:
+Each `csrc/*.cu` source is compiled at first use by its own nvcc, all of
+them started together, into a shared library with a plain C interface,
+loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/vslam_tpu_torch/libvslam_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -o build/vslam_tpu_torch/libvslam_<source>_<hash>.so csrc/<source>.cu
 
-The library lands in `build/vslam_tpu_torch/` at the repository root,
+The libraries land in `build/vslam_tpu_torch/` at the repository root,
 named by a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is loaded as is. No source includes PyTorch's headers:
 the build takes seconds, not minutes.
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 __all__ = ["build", "library", "NVCC_FLAGS"]
@@ -44,6 +46,14 @@ _COMMON = [_VP] * 10 + [_I] * 8 + [_F, _I] + [_F] * 4 + [_I, _I]
 _SIGNATURES = {
     "vslam_solve_level_fused": _COMMON + [_VP] * 4,
     "vslam_solve_level_fused_robust": _COMMON + [_I, _I, _F, _F] + [_VP] * 6,
+    # (pcl, mask, rel_R, rel_t, cam, image, image_is_bf16, B, F, P, H, W,
+    # bilinear, iwxp, visible, stream)
+    "vslam_fused_level_sample": [_VP] * 6 + [_I] * 7 + [_VP] * 3,
+    # (pcl, J, templ, mask, rel_R, rel_t, cam, image, image_is_bf16, B, F,
+    # P, H, W, bilinear, out, stream)
+    "vslam_fused_level_ne": [_VP] * 8 + [_I] * 7 + [_VP] * 2,
+    # (img, u, v, B, M, H, W, out, stream)
+    "vslam_bilinear_sample_mxu": [_VP] * 3 + [_I] * 4 + [_VP] * 2,
 }
 
 
@@ -63,37 +73,51 @@ def _sources():
 
 
 def build(verbose: bool = False):
-    """Compile the kernels if needed. Returns (library path, compiler log);
-    ``verbose`` adds -Xptxas -v (registers, shared memory, spills) and always
-    recompiles so the log is fresh."""
+    """Compile the kernels if needed, one nvcc per source, all started
+    together. Returns (library paths, compiler log); ``verbose`` adds
+    -Xptxas -v (registers, shared memory, spills) and always recompiles so
+    the log is fresh."""
     units, all_files = _sources()
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in all_files:
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
-    lib = BUILD_DIR / f"libvslam_kernels_{digest.hexdigest()[:16]}.so"
-    if lib.exists() and not verbose:
-        return lib, ""
+    libs = [BUILD_DIR / f"libvslam_{u.stem}_{digest.hexdigest()[:16]}.so" for u in units]
+    todo = [(u, lib) for u, lib in zip(units, libs) if verbose or not lib.exists()]
+    if not todo:
+        return libs, ""
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-I", str(SRC_DIR), "-o", str(tmp), *map(str, units)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    jobs = []
+    for unit, lib in todo:
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *flags, "-I", str(SRC_DIR), "-o", str(tmp), str(unit)]
+        jobs.append((lib, tmp, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for lib, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs, "".join(log)
 
 
 @functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), argtypes declared."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+def library() -> types.SimpleNamespace:
+    """The C entries of the kernel libraries (built on first call), argtypes
+    declared, as attributes named like the entries."""
+    paths, _ = build()
+    libs = [ctypes.CDLL(str(p)) for p in paths]
+    entries = {}
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        entries[name] = fn
+    return types.SimpleNamespace(**entries)

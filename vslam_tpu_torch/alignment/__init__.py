@@ -1,7 +1,7 @@
 """Direct image alignment (port of `vslam_tpu.alignment`)."""
 
-from . import aligner, fused_solve, ic
+from . import aligner, fused_ne, fused_solve, ic, pallas_kernels
 from .aligner import RgbdAligner, stack_frames
 from .ic import AlignmentConfig
 
-__all__ = ["aligner", "fused_solve", "ic", "RgbdAligner", "stack_frames", "AlignmentConfig"]
+__all__ = ["aligner", "fused_ne", "fused_solve", "ic", "pallas_kernels", "RgbdAligner", "stack_frames", "AlignmentConfig"]

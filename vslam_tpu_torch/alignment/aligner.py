@@ -2,9 +2,11 @@
 
 Converts between the host's f64 absolute poses and the device's f32
 relative transforms around one coarse-to-fine `ic.align` call (reference
-`SE3Alignment.cpp`); one pair, so the pair axis is B = 1. The visual-log
-sinks and the fused build-and-align step of the JAX class are not ported
-yet.
+`SE3Alignment.cpp`); one pair, so the pair axis is B = 1. It services the
+visual-log sinks of `utils.log` as the JAX class does: the SolverGN plot
+and the per-iteration ImageWarped / Residual / Weights images. The cached
+reference data and the fused build-and-align step of the JAX class are not
+ported yet.
 
     aligner = RgbdAligner(AlignmentConfig(...))
     pose, cov, ok = aligner.align([kf, last], [kf_pose, last_pose], cur, pred)
@@ -20,6 +22,7 @@ import torch
 from ..core import lie_np
 from ..core.frame import Frame
 from ..core.se3 import SE3
+from ..utils.log import log_img, log_plt
 from ..utils.tree import tree_map
 from . import ic
 from .ic import AlignmentConfig
@@ -69,12 +72,51 @@ class RgbdAligner:
         """Coarse-to-fine alignment of ``cur_frame`` against one or more
         reference frames (stacked normal equations). Frames are unbatched
         (leaves (H, W)). Returns (pose world->cam 4x4 f64, covariance 6x6,
-        valid)."""
+        valid).
+
+        With an image sink enabled the solve records every evaluated
+        iteration and each is replayed into the sinks, coarsest level first
+        (InverseCompositional.cpp:149-151); with only the SolverGN sink the
+        solver's per-level history is logged (GaussNewton.cpp:100)."""
         img0 = cur_frame.intensity[0]
         rel_init, x_pred = _prep_init(ref_poses, pred_pose, img0.dtype, img0.device)
         ref = tree_map(lambda x: x[None], stack_frames(ref_frames))  # (1, F, ...)
         cur = tree_map(lambda x: x[None], cur_frame)  # (1, ...)
-        rel, cov, valid = ic.align(
-            ref, cur, SE3(rel_init.R[None], rel_init.t[None]), x_pred[None], self.cfg
-        )
+        args = (ref, cur, SE3(rel_init.R[None], rel_init.t[None]), x_pred[None], self.cfg)
+        plt_sink = log_plt("SolverGN")
+        img_sinks = [log_img(n) for n in ("ImageWarped", "Residual", "Weights")]
+        if any(s.enabled for s in img_sinks):
+            rel, cov, valid, diag = ic.align(*args, record_iterations=True)
+            if plt_sink.enabled:
+                plt_sink.log({k: _host(diag[k]) for k in ("chi2", "step_size", "iterations")})
+            self._emit_iteration_logs(ref, cur, diag, img_sinks)
+        elif plt_sink.enabled:
+            rel, cov, valid, diag = ic.align(*args, with_diagnostics=True)
+            plt_sink.log({k: _host(v) for k, v in diag.items()})
+        else:
+            rel, cov, valid = ic.align(*args)
         return _finish(SE3(rel.R[0, 0], rel.t[0, 0]), cov[0], valid[0], ref_poses[0])
+
+    def _emit_iteration_logs(self, ref, cur, diag, sinks) -> None:
+        """Replay each evaluated GN iteration of each level into the image
+        sinks, one `ic.iteration_images` call per iteration; ref and cur
+        carry the pair axis B = 1."""
+        warped_sink, residual_sink, weights_sink = sinks
+        x_log = diag["x_log"]  # (1, L, I, 6)
+        n_eval = torch.isfinite(x_log[0, :, :, 0]).sum(dim=1).tolist()
+        L = x_log.shape[1]
+        for l_idx in range(L):
+            level = L - 1 - l_idx  # histories are stored coarsest first
+            data = ic.level_data(ref, level, self.cfg)
+            rel0 = SE3(diag["rel0_R"][:, l_idx], diag["rel0_t"][:, l_idx])
+            for i in range(n_eval[l_idx]):
+                out = ic.iteration_images(data, rel0, x_log[:, l_idx, i], cur.intensity[level],
+                                          cur.cameras[level], self.cfg)
+                warped_sink.log(_host(out["image_warped"]))
+                residual_sink.log(_host(out["residual"]))
+                weights_sink.log(_host(out["weights"]))
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """One pair's entry (the leading B = 1 axis dropped) as a numpy array."""
+    return x[0].detach().cpu().numpy()

@@ -187,12 +187,13 @@ def _prepare_image(image_cur: torch.Tensor, cfg) -> torch.Tensor:
     return image_cur.to(torch.float32)
 
 
-def _residuals(data, rel: SE3, img: torch.Tensor, cam: Camera, bilinear: bool):
-    """Residuals r = I(w(x)) - T and visibility (B, F, P) at rel (B, F):
-    warp, pinhole projection, visibility (mask, z > 0, 1 < u < W-1,
-    1 < v < H-1), nearest or bilinear sampling. r is meaningful only where
-    visible."""
-    B, F, P = data.templ.shape
+def _sample(data, rel: SE3, img: torch.Tensor, cam: Camera, bilinear: bool):
+    """Intensities iwxp and visibility (B, F, P) at rel (B, F): warp, pinhole
+    projection, visibility (mask, z > 0, 1 < u < W-1, 1 < v < H-1), nearest
+    or bilinear sampling; an invisible point samples pixel (0, 0), as the
+    TPU kernel does. A bf16 image's bilinear row weights are rounded to
+    bf16, the column weights stay f32 (`warp_sample.cuh` `row_weight`)."""
+    B, F, P = data.mask.shape
     H, W = img.shape[-2:]
     R, t = rel.R[..., None, :, :], rel.t[..., None, :]
     p = data.pcl
@@ -219,12 +220,21 @@ def _residuals(data, rel: SE3, img: torch.Tensor, cam: Camera, bilinear: bool):
     if bilinear:
         u0, v0 = torch.floor(u), torch.floor(v)
         ax, ay = u - u0, v - v0
+        wy0, wy1 = 1.0 - ay, ay
+        if img.dtype == torch.bfloat16:
+            wy0, wy1 = wy0.to(torch.bfloat16).float(), wy1.to(torch.bfloat16).float()
         iu, iv = u0.long(), v0.long()
-        iwxp = ((1.0 - ax) * ((1.0 - ay) * px_at(iv, iu) + ay * px_at(iv + 1, iu))
-                + ax * ((1.0 - ay) * px_at(iv, iu + 1) + ay * px_at(iv + 1, iu + 1)))
+        iwxp = ((1.0 - ax) * (wy0 * px_at(iv, iu) + wy1 * px_at(iv + 1, iu))
+                + ax * (wy0 * px_at(iv, iu + 1) + wy1 * px_at(iv + 1, iu + 1)))
     else:
         iwxp = px_at(torch.floor(v + 0.5).long(), torch.floor(u + 0.5).long())
-    return iwxp - data.templ, visible
+    return iwxp, visible
+
+
+def _gram_matrix(sums: torch.Tensor) -> torch.Tensor:
+    """The symmetric 6x6 JᵀWJ (..., 6, 6) from its upper triangle in the
+    Gram sums (..., 29)."""
+    return sums[..., torch.tensor(_TRIU_INDEX, device=sums.device)]
 
 
 def _sum(x: torch.Tensor) -> torch.Tensor:
@@ -324,20 +334,21 @@ def _robust_weight(r_std: torch.Tensor, loss_cfg) -> torch.Tensor:
     return (vt + 1.0) / (vt + r_std * r_std)
 
 
-def _frame_sums(data, rel: SE3, img: torch.Tensor, cam: Camera, cfg) -> torch.Tensor:
+def _frame_sums(data, rel: SE3, img: torch.Tensor, cam: Camera, bilinear: bool, loss_cfg) -> torch.Tensor:
     """Per-frame raw Gram sums (B, F, 29) at rel (B, F) over the visible
     points: upper JᵀWJ (21), JᵀWr (6), Σ w r², visible count. W is 1
     (quadratic loss) or the robust weight of the scale computed from this
     iteration's residuals."""
-    r, visible = _residuals(data, rel, img, cam, cfg.interpolation == "bilinear")
+    iwxp, visible = _sample(data, rel, img, cam, bilinear)
+    r = iwxp - data.templ
     J = data.J
-    if cfg.loss.function == "None":
+    if loss_cfg.function == "None":
         terms = [J[..., a] * J[..., c] for a, c in _TRIU]
         terms += [J[..., a] * r for a in range(6)] + [r * r]
     else:
         r = torch.where(visible, r, torch.zeros_like(r))  # the kernel's residual cache
-        offset, sigma = _robust_scale(r, data.mask, data.n_constraints, cfg.loss)
-        w = _robust_weight((r - offset[..., None]) / sigma[..., None], cfg.loss)
+        offset, sigma = _robust_scale(r, data.mask, data.n_constraints, loss_cfg)
+        w = _robust_weight((r - offset[..., None]) / sigma[..., None], loss_cfg)
         wj = J * w[..., None]
         terms = [wj[..., a] * J[..., c] for a, c in _TRIU]
         terms += [wj[..., a] * r for a in range(6)] + [w * r * r]
@@ -350,11 +361,10 @@ def _fused_ne(data, rel: SE3, img, cam, cfg, include_prior, x_pred) -> NormalEqu
     """Stacked normalized NE: per frame, divide by the interest-point count
     (1 when n <= 1), then add the prior (x 1/255^2, + w I, b += w (x - x_pred)
     with the series log of the frame's pose); sum over the frames."""
-    sums = _frame_sums(data, rel, img, cam, cfg)
+    sums = _frame_sums(data, rel, img, cam, cfg.interpolation == "bilinear", cfg.loss)
     n = data.n_constraints
     inv_n = torch.where(n > 1, 1.0 / torch.clamp(n, min=1.0), torch.ones_like(n))
-    idx = torch.tensor(_TRIU_INDEX, device=sums.device)
-    A = sums[..., idx] * inv_n[..., None, None]
+    A = _gram_matrix(sums) * inv_n[..., None, None]
     b = sums[..., 21:27] * inv_n[..., None]
     chi2 = sums[..., 27] * inv_n
     if include_prior:

@@ -14,6 +14,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .device import resolve
+
 __all__ = ["Camera", "project", "backproject", "scale", "expand"]
 
 
@@ -25,7 +27,9 @@ class Camera(NamedTuple):
 
     @staticmethod
     def create(fx, fy, cx, cy, dtype=torch.float32, device=None) -> "Camera":
-        return Camera(*(torch.as_tensor(v, dtype=dtype, device=device) for v in (fx, fy, cx, cy)))
+        """Intrinsics on ``device``, CUDA unless named."""
+        dev = resolve(device)
+        return Camera(*(torch.as_tensor(v, dtype=dtype, device=dev) for v in (fx, fy, cx, cy)))
 
 
 def expand(cam: Camera, ndim: int) -> Camera:

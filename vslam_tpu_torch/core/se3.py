@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from .device import resolve
+
 __all__ = [
     "SE3",
     "identity",
@@ -38,6 +40,8 @@ class SE3(NamedTuple):
 
 
 def identity(batch_shape=(), dtype=torch.float32, device=None) -> SE3:
+    """Identity transforms of ``batch_shape`` on ``device``, CUDA unless named."""
+    device = resolve(device)
     R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3).clone()
     t = torch.zeros(*batch_shape, 3, dtype=dtype, device=device)
     return SE3(R, t)

@@ -52,8 +52,6 @@
 
 namespace vslam {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kOut = 64;  // A (36), b (6), chi2, iterations, valid, R (9), t (3)
 
 struct SolveParams {
@@ -214,29 +212,6 @@ __device__ float chol6_logdet_solve(const float (&A)[36], const float (&b)[6], f
     x[i] = s / L[7 * i];
   }
   return logdet;
-}
-
-// Sum the per-thread partials over the block: warp shuffles, then one pass
-// over the per-warp rows in shared memory. Ends synchronized, so every
-// thread may read s_sum and the next call may reuse s_warp.
-__device__ __forceinline__ void block_reduce(float (&acc)[kGram], float (*s_warp)[kGram],
-                                             float* s_sum) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kGram; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) s_warp[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kGram) {
-    float v = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += s_warp[w][threadIdx.x];
-    s_sum[threadIdx.x] = v;
-  }
-  __syncthreads();
 }
 
 // Shared scratch of the robust entry's block-wide reductions.
@@ -448,9 +423,8 @@ __device__ __forceinline__ void compose_frame(const SolveParams& p, size_t bf, c
 
 template <typename TImg, bool BILINEAR, bool ROBUST>
 __global__ void __launch_bounds__(kThreads) solve_level_kernel(const SolveParams p) {
-  __shared__ float s_warp[kWarps][kGram];
+  __shared__ GramScratch s_gram;
   __shared__ ReduceScratch s_red;  // robust entry
-  __shared__ float s_sum[kGram];
   __shared__ float s_delta[12];  // delta R (9), t (3)
   __shared__ float s_A[36];      // last accepted A, b
   __shared__ float s_b[6];
@@ -550,7 +524,7 @@ __global__ void __launch_bounds__(kThreads) solve_level_kernel(const SolveParams
           gram_accumulate(acc, j, r);
         }
       }
-      block_reduce(acc, s_warp, s_sum);
+      block_reduce(acc, s_gram);
 
       if (tid == 0) {
         // normalize by the interest-point count, add the prior, stack
@@ -559,9 +533,9 @@ __global__ void __launch_bounds__(kThreads) solve_level_kernel(const SolveParams
         float Af[36], bf6[6];
         int k = 0;
         for (int a = 0; a < 6; ++a)
-          for (int c = a; c < 6; ++c, ++k) Af[6 * a + c] = Af[6 * c + a] = s_sum[k] * inv_n;
-        for (int a = 0; a < 6; ++a) bf6[a] = s_sum[kGramB + a] * inv_n;
-        const float chi2_f = s_sum[kGramChi2] * inv_n;
+          for (int c = a; c < 6; ++c, ++k) Af[6 * a + c] = Af[6 * c + a] = s_gram.sum[k] * inv_n;
+        for (int a = 0; a < 6; ++a) bf6[a] = s_gram.sum[kGramB + a] * inv_n;
+        const float chi2_f = s_gram.sum[kGramChi2] * inv_n;
         if (p.include_prior) {
           float x[6];
           se3_log_series(T.R, T.t, x);

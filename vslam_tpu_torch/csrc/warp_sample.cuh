@@ -1,9 +1,10 @@
 // Per-point device functions of the inverse-compositional residual pass:
 // SE(3) warp + pinhole projection + visibility, intensity sampling, and the
-// (robustly weighted) Gram accumulation of one point. Ports of `fused_ne._sample_chunk` and
+// (robustly weighted) Gram accumulation of one point, plus the block-wide
+// sum of the Gram partials. Ports of `fused_ne._sample_chunk` and
 // `fused_ne._gram_chunk` (vslam_tpu/alignment/fused_ne.py:113-231), shared
-// by the whole-level solve kernel (fused_solve.cu) and, later, by the ports
-// of `fused_level_ne` and `fused_level_sample`.
+// by the whole-level solve kernel (fused_solve.cu) and the ports of
+// `fused_level_ne` and `fused_level_sample` (fused_ne.cu).
 //
 // The TPU kernels sample through one-hot matmuls because Mosaic has no
 // gather; here every point reads its 1 (nearest) or 4 (bilinear) pixels
@@ -13,6 +14,9 @@
 #include <cuda_bf16.h>
 
 namespace vslam {
+
+constexpr int kThreads = 256;  // threads per block of every kernel here
+constexpr int kWarps = kThreads / 32;
 
 struct Pose {
   float R[9];  // row-major
@@ -54,18 +58,28 @@ __device__ __forceinline__ bool warp_project(const Pose& T, const Intrinsics& K,
   return z_ok && u > 1.0f && u < (float)W - 1.0f && v > 1.0f && v < (float)H - 1.0f;
 }
 
-// Intensity at a visible (u, v): bilinear, or round-to-nearest as
-// floor(x + 0.5) (the reference's std::round on non-negative coords).
+// A bilinear row weight as the TPU kernel applies it: for a bf16 image the
+// row weights are the one-hot matmul's bf16 operand (fused_ne.py:170-176,
+// 202-205), so they are rounded to bf16; the column weights stay f32.
+__device__ __forceinline__ float row_weight(float w, const float*) { return w; }
+
+__device__ __forceinline__ float row_weight(float w, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(w));
+}
+
+// Intensity at a visible (u, v), or at (0, 0): bilinear, or round-to-nearest
+// as floor(x + 0.5) (the reference's std::round on non-negative coords).
 // Visibility keeps every index inside the image.
 template <bool BILINEAR, typename TImg>
 __device__ __forceinline__ float sample(const TImg* img, int W, float u, float v) {
   if (BILINEAR) {
     const float u0 = floorf(u), v0 = floorf(v);
     const float ax = u - u0, ay = v - v0;
+    const float wy0 = row_weight(1.0f - ay, img), wy1 = row_weight(ay, img);
     const int base = (int)v0 * W + (int)u0;
     const float i00 = load_px(img, base), i01 = load_px(img, base + 1);
     const float i10 = load_px(img, base + W), i11 = load_px(img, base + W + 1);
-    return (1.0f - ax) * ((1.0f - ay) * i00 + ay * i10) + ax * ((1.0f - ay) * i01 + ay * i11);
+    return (1.0f - ax) * (wy0 * i00 + wy1 * i10) + ax * (wy0 * i01 + wy1 * i11);
   }
   const int iu = (int)floorf(u + 0.5f), iv = (int)floorf(v + 0.5f);
   return load_px(img, iv * W + iu);
@@ -103,6 +117,35 @@ __device__ __forceinline__ void gram_accumulate_weighted(float (&acc)[kGram], co
   for (int a = 0; a < 6; ++a) acc[kGramB + a] += wj[a] * r;
   acc[kGramChi2] += w * r * r;
   acc[kGramCount] += 1.0f;
+}
+
+// Shared scratch of block_reduce.
+struct GramScratch {
+  float warp[kWarps][kGram];
+  float sum[kGram];
+};
+
+// Sum the per-thread partials over the block: warp shuffles, then one pass
+// over the per-warp rows in shared memory (the order fused_solve._block_sum
+// reproduces). Ends synchronized, so every thread may read s.sum and the next
+// call may reuse s.warp.
+__device__ __forceinline__ void block_reduce(float (&acc)[kGram], GramScratch& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kGram; ++k) {
+    float v = acc[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) s.warp[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kGram) {
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += s.warp[w][threadIdx.x];
+    s.sum[threadIdx.x] = v;
+  }
+  __syncthreads();
 }
 
 }  // namespace vslam

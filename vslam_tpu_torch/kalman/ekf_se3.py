@@ -55,8 +55,9 @@ def init(
     dtype=torch.float32,
     device=None,
 ) -> EkfState:
-    """A filter at ``pose`` (identity by default) with zero velocity; the
-    leaves get the pose's leading axes."""
+    """A filter at ``pose`` (the identity on ``device``, CUDA unless named,
+    by default) with zero velocity; the leaves get the pose's leading axes
+    and device."""
     if pose is None:
         pose = se3.identity(dtype=dtype, device=device)
     batch = pose.t.shape[:-1]

@@ -18,7 +18,7 @@ that end at different frames.
 `_step` carries a leading sequence axis S on every tensor (S = 1 for one
 stream), so batching sequences is a matter of stacking their states.
 
-    odo = SequentialOdometry(Camera.create(fx, fy, cx, cy, device="cuda"), cfg, chunk=32)
+    odo = SequentialOdometry(Camera.create(fx, fy, cx, cy), cfg, chunk=32)  # on CUDA
     trajectory = odo.run(stream)  # [(t_ns, world->cam 4x4 f64, cov 6x6), ...]
 
 The mapping backend, the live viewer and stereo depth are not ported yet and
@@ -37,6 +37,7 @@ from ..alignment import ic
 from ..alignment.ic import AlignmentConfig
 from ..core import se3
 from ..core.camera import Camera
+from ..core.device import resolve
 from ..core.frame import create_frame
 from ..core.se3 import SE3
 from ..kalman import ekf_se3
@@ -170,11 +171,13 @@ def _stage_chunk(buf, t_prev_ns: int, device) -> StagedChunk:
 
 
 def stage_stream(
-    stream: Iterable[Tuple[int, np.ndarray, np.ndarray]], chunk: int, device="cpu"
+    stream: Iterable[Tuple[int, np.ndarray, np.ndarray]], chunk: int, device=None
 ) -> Tuple[Tuple[int, np.ndarray, np.ndarray], List[StagedChunk]]:
-    """Stage a whole stream on ``device`` up front: returns the first frame
-    (for `init_state`) and the rest as `StagedChunk`s for
-    `SequentialOdometry.run_staged`, which several replays may share."""
+    """Stage a whole stream on ``device`` (CUDA unless named) up front:
+    returns the first frame (for `init_state`) and the rest as
+    `StagedChunk`s for `SequentialOdometry.run_staged`, which several
+    replays may share."""
+    device = resolve(device)
     it = iter(stream)
     try:
         first = next(it)

@@ -64,6 +64,9 @@ class SolverResult(NamedTuple):
     valid: torch.Tensor  # (B,) bool: at least one iteration was accepted
     chi2_history: torch.Tensor  # (B, max_iterations), NaN past the last evaluated
     step_history: torch.Tensor  # (B, max_iterations)
+    # (B, max_iterations, K) encoded state at which each evaluated
+    # iteration's NE was taken, NaN past the last (only with encode_x)
+    x_history: Any = None
 
 
 def _select(pred: torch.Tensor, a, b):
@@ -105,9 +108,12 @@ def solve_gauss_newton(
     x0: Any,
     n_params: int,
     config: SolverConfig = SolverConfig(),
+    encode_x: Callable[[Any], torch.Tensor] | None = None,
 ) -> SolverResult:
     """Batched GN: ``compute_ne(x)`` returns NormalEquations with leading
-    axis B; ``update_x(x, dx)`` applies a (B, n_params) step."""
+    axis B; ``update_x(x, dx)`` applies a (B, n_params) step. ``encode_x``,
+    when given, maps the state to a (B, K) vector recorded per evaluated
+    iteration (`SolverResult.x_history`, for the visual-log replay)."""
     ne0 = compute_ne(x0)
     A0 = ne0.A
     B, dtype, device = A0.shape[0], A0.dtype, A0.device
@@ -119,6 +125,10 @@ def solve_gauss_newton(
     done = torch.zeros(B, dtype=torch.bool, device=device)
     chi2_hist = torch.full((B, config.max_iterations), float("nan"), dtype=dtype, device=device)
     step_hist = torch.full_like(chi2_hist, float("nan"))
+    x_hist = None
+    if encode_x is not None:
+        K = encode_x(x0).shape[-1]
+        x_hist = torch.full((B, config.max_iterations, K), float("nan"), dtype=dtype, device=device)
 
     ne = ne0
     for i in range(config.max_iterations):
@@ -129,6 +139,8 @@ def solve_gauss_newton(
         live = ~done
         dx, logdet = cholesky_logdet_solve(ne.A, ne.b)
         step, accepted, stop = gn_decision(ne, dx, logdet, chi2_prev, pushed, config, n_params)
+        if x_hist is not None:
+            x_hist[:, i] = torch.where(live[:, None], encode_x(x), x_hist[:, i])
         x_new = update_x(x, dx)
         take = live & accepted
         x = _select(take, x_new, x)
@@ -148,4 +160,5 @@ def solve_gauss_newton(
         valid=pushed > 0,
         chi2_history=chi2_hist,
         step_history=step_hist,
+        x_history=x_hist,
     )

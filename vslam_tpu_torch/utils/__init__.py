@@ -1,6 +1,6 @@
 """Small helpers shared across the port."""
 
-from . import timer
+from . import log, timer
 from .tree import tree_map
 
-__all__ = ["timer", "tree_map"]
+__all__ = ["log", "timer", "tree_map"]
