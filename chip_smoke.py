@@ -5,7 +5,10 @@
 Phases, each ending in torch.cuda.synchronize():
   1. device   — requires CUDA (no CPU fallback); prints the card's name and
                 power limit as nvidia-smi reports them
-  2. build    — nvcc-builds the kernels from vslam_tpu_torch/csrc
+  2. build    — nvcc-builds the kernels from vslam_tpu_torch/csrc, and
+                beside them the sweep's variants of the whole-level kernel
+                (each CTA count of CTAS_TRIED), one nvcc each, all started
+                together
   3. kernel   — the whole-level GN kernel's quadratic entry against its plain
                 PyTorch version on the same tensors: 64 rendered 480x640
                 pairs, finest level, four cases (F=1 nearest bf16, F=1
@@ -56,6 +59,21 @@ Phases, each ending in torch.cuda.synchronize():
                 version's and its bound at phase 10's level inputs, with
                 grid_sample beside the mxu kernel; align_pairs ms with
                 "fused", "mxu" and "fused_gn"; RgbdAligner ms, sinks on and off
+ 13. split    — where an iteration of the whole-level kernel goes, both
+                entries, at their level-0 main-path inputs (align_pairs
+                B=64 F=1; the robust profile B=1 F=2): device time at
+                max_iterations 1, 2, 4, 8 with the interest mask as given
+                and thinned to every 8th point, fitted as launch +
+                iterations x (fixed + per-point x points)
+ 14. sweep    — the whole-level kernel at each CTA count of CTAS_TRIED,
+                each bit for bit against the plain version summing in that
+                count's order, device ms at every level of the three paths
+                that launch it (align_pairs, the odometry and the robust
+                profile) with the evaluated iterations; the source's count
+                is the chosen one
+ 15. mxu      — the mxu kernel against grid_sample at phase 10's level
+                inputs in alternation (kernel, grid_sample, grid_sample,
+                kernel; MXU_ROUNDS rounds) with the spread of each
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for its work (`_bound`); the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script
@@ -66,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -85,16 +104,32 @@ PEAK_BYTES = 3.35e12
 # projection and visibility test (warp_sample.cuh `warp_project`); a
 # nearest or bilinear sample (`sample`); the residual and one point's Gram
 # terms (`gram_accumulate`) or their weighted form
-# (`gram_accumulate_weighted`); the robust entry's scale and weight per
-# point and iteration (fused_solve.cu: 24 bisection passes counting two
-# ranks, the absolute deviation sum, the standardized residual and its
-# weight); and sample_mxu.cu's floors, weights, in-image tests and mixes.
+# (`gram_accumulate_weighted`); and sample_mxu.cu's floors, weights,
+# in-image tests and mixes.
 OPS_WARP = 32
 OPS_SAMPLE = {"nearest": 4, "bilinear": 15}
 OPS_GRAM = 58
 OPS_GRAM_W = 65
-OPS_ROBUST = 110
 OPS_MXU = 27
+# The robust entry's scale and weight (fused_solve.cu), counted for the
+# rounds this run's data needs (`_robust_scale_ops`): per point, the
+# median's radix select takes OPS_SELECT_FIRST in its first round (key,
+# digit, min, max) and, in each later round its frame takes part in,
+# OPS_SELECT_KEY (the key) and OPS_SELECT_RANK for each rank still
+# selecting (the prefix shift and test, the digit); per frame and median,
+# OPS_REPLAY for the 24 bisection steps of two ranks replayed on one lane;
+# per point and iteration, the absolute deviation sum of the reference
+# scaler (OPS_ABSDEV) and the standardized residual and its weight
+# (OPS_WEIGHT). OPS_ROBUST_BISECT is the scale's count per point and
+# iteration for the 24 count passes of two ranks that a counting median
+# makes, printed once beside it.
+OPS_SELECT_FIRST = 5
+OPS_SELECT_KEY = 2
+OPS_SELECT_RANK = 3
+OPS_REPLAY = 2 * 24 * 3
+OPS_ABSDEV = 3
+OPS_WEIGHT = 11
+OPS_ROBUST_BISECT = 110
 TAPS = {"nearest": 1, "bilinear": 4}  # pixels read per sample
 
 
@@ -172,47 +207,105 @@ def _events_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# profiler windows tried before a measurement fails: the card's profiler
+# (CUPTI) now and then delivers none of a window's kernel records
+PROFILER_ATTEMPTS = 3
+
+
+def _profiled_events(fn):
+    """The events of one torch.profiler window around ``fn()``, which ends
+    synchronized; a short pause before the window closes lets the profiler
+    deliver the device records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    return prof.events()
+
+
 def _kernel_device_ms(fn, reps, kernel_name):
     """(mean device ms per launch, records seen) of the one kernel named
     ``kernel_name`` that each call of ``fn`` launches, from a torch.profiler
     (CUPTI) window over ``reps`` calls. Unlike events around the calls, this
     excludes the host time of the wrapper, which bounds small levels. The
     profiler does not always deliver every kernel record (on the card it
-    has missed one or two of 20), so the mean is over the records it
-    delivered, of identical launches, and at least half must arrive."""
+    has missed one or two of 20, and now and then all of them), so the mean
+    is over the records it delivered, of identical launches; at least half
+    must arrive, in one of PROFILER_ATTEMPTS windows."""
+    from torch.autograd import DeviceType
+
+    for _ in range(PROFILER_ATTEMPTS):
+        events = _profiled_events(lambda: [fn() for _ in range(reps)])
+        us = [e.time_range.end - e.time_range.start for e in events
+              if e.device_type == DeviceType.CUDA and kernel_name in e.name]
+        if reps // 2 <= len(us) <= reps:
+            return sum(us) / 1e3 / len(us), len(us)
+    raise AssertionError(f"profiler saw {len(us)} launches of {kernel_name}, expected {reps}, "
+                         f"in each of {PROFILER_ATTEMPTS} windows")
+
+
+def _device_ms_batch(groups):
+    """Device ms of several measurements in one torch.profiler window (the
+    card's profiler has dropped every record after many windows in one
+    process). Each group (fn, reps, kernel_name) runs its reps calls inside
+    a record_function range that ends in a synchronization, the groups 2 ms
+    apart; its time is the
+    mean over the recorded device kernels in the range whose name holds
+    kernel_name (per launch; at least half of reps recorded), or, for
+    kernel_name None, every device kernel in the range summed over reps (a
+    library call's time per call)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel_name in e.name]
-    if not reps // 2 <= len(us) <= reps:
-        raise AssertionError(f"profiler saw {len(us)} launches of {kernel_name}, expected {reps}")
-    return sum(us) / 1e3 / len(us), len(us)
+    def window():
+        for g, (fn, reps, _) in enumerate(groups):
+            with record_function(f"_group{g}"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            time.sleep(2e-3)  # an idle gap: device and host clocks align only to a few us
+
+    for fn, _, _ in groups:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_ATTEMPTS):
+        events = _profiled_events(window)
+        ranges = {e.name: (e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CPU and e.name.startswith("_group")}
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.name.startswith("_group")]
+        out, missing = [], None
+        for g, (_, reps, name) in enumerate(groups):
+            a, b = ranges[f"_group{g}"]
+            inside = [e for e in kernels if a <= e.time_range.start <= b]
+            us = [e.time_range.end - e.time_range.start for e in inside if name is None or name in e.name]
+            if not (us if name is None else reps // 2 <= len(us) <= reps):
+                missing = (f"profiler saw {len(us)} launches of {name or 'any kernel'} in group {g}, "
+                           f"expected {reps} (kernels seen: {sorted({e.name for e in inside})[:5]})")
+                break
+            out.append(sum(us) / 1e3 / (reps if name is None else len(us)))
+        if missing is None:
+            return out
+    raise AssertionError(f"{missing}, in each of {PROFILER_ATTEMPTS} windows")
 
 
 def _calls_device_ms(fn, reps):
     """(device ms per call of every kernel ``fn`` launches, their names)
     from a torch.profiler window over ``reps`` calls: the time of a library
     call whose kernels are not ours to name."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        raise AssertionError("profiler saw no device kernel of the library call")
-    us = sum(e.time_range.end - e.time_range.start for e in events)
-    return us / 1e3 / reps, sorted({e.name for e in events})
+    for _ in range(PROFILER_ATTEMPTS):
+        events = [e for e in _profiled_events(lambda: [fn() for _ in range(reps)])
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            us = sum(e.time_range.end - e.time_range.start for e in events)
+            return us / 1e3 / reps, sorted({e.name for e in events})
+    raise AssertionError(f"profiler saw no device kernel of the library call in {PROFILER_ATTEMPTS} windows")
 
 
 @contextlib.contextmanager
@@ -269,24 +362,101 @@ def _point_bytes(data, with_ne: bool) -> int:
     return Bp * F * P * (13 + (28 if with_ne else 0)) + Bp * F * 48 + Bp * 16
 
 
-def _solve_work(args, result):
+def _solve_work(args, result, scale_ops=None):
     """(operations, bytes) one whole-level launch needs at these inputs:
     each evaluated (pair, iteration) warps, samples and accumulates the
-    pair's interest points (robust: also the scale and weights) and reads
-    their pixel taps; the level data, prior and outputs move once."""
-    import torch
-
+    pair's interest points and reads their pixel taps; the level data,
+    prior and outputs move once. The robust entry adds ``scale_ops`` for
+    its scales and weights (default: what `_robust_scale_ops` counts)."""
     data, _, image, _, cfg, _ = args
     Bp, F, _ = data.mask.shape
-    evals = torch.isfinite(result.chi2_history).sum(dim=1).double()
-    point_evals = float((evals * data.mask.sum(dim=(1, 2)).double()).sum())
-    robust = cfg.loss.function != "None"
-    per_point = OPS_WARP + OPS_SAMPLE[cfg.interpolation] + (OPS_GRAM_W + OPS_ROBUST if robust else OPS_GRAM)
+    point_evals = _point_evals(args, result)
+    ops = point_evals * (OPS_WARP + OPS_SAMPLE[cfg.interpolation])
+    if cfg.loss.function == "None":
+        ops += point_evals * OPS_GRAM
+    else:
+        ops += point_evals * OPS_GRAM_W + (_robust_scale_ops(args, result) if scale_ops is None else scale_ops)
     bpp = 2 if cfg.image_dtype == "bfloat16" else 4
     taps = min(point_evals * TAPS[cfg.interpolation], image.numel()) * bpp
     n_it = result.chi2_history.shape[1]
     nbytes = _point_bytes(data, True) + Bp * F * 28 + taps + Bp * 4 * (64 + 2 * n_it)
-    return point_evals * per_point, nbytes
+    return ops, nbytes
+
+
+def _point_evals(args, result) -> float:
+    """Interest points times evaluated iterations, summed over the pairs."""
+    import torch
+
+    evals = torch.isfinite(result.chi2_history).sum(dim=1).double()
+    return float((evals * args[0].mask.sum(dim=(1, 2)).double()).sum())
+
+
+def _float_keys(x):
+    """fused_solve.cu's order-preserving uint32 keys of non-NaN floats."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return np.where(u >> 31 == 1, ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _rank_rounds(keys, k: int) -> int:
+    """Rounds of the kernel's radix select for the k-th of the sorted
+    ``keys``: done after the first round whose bucket (the keys that share
+    the selected digits) holds no key with other lower bits than the
+    canonical ones (zeros above zero, ones below), at the latest after 4."""
+    key = int(keys[k])
+    for r in range(3):
+        low = 24 - 8 * r
+        bucket = keys[(keys >> low) == (key >> low)]
+        canonical = np.where(bucket >> 31 == 1, 0, (1 << low) - 1).astype(np.uint32)
+        if np.all((bucket & np.uint32((1 << low) - 1)) == canonical):
+            return r + 1
+    return 4
+
+
+def _select_point_ops(v, m, n):
+    """Operations per interest point (B, F) of one masked median of v
+    (B, F, P) over m, ranks from n (B, F), as the kernel's radix select
+    takes them (`select_medians`)."""
+    v, m, n = v.cpu().numpy(), m.cpu().numpy(), n.cpu().numpy()
+    out = np.zeros(n.shape)
+    for idx in np.ndindex(*n.shape):
+        x = v[idx][m[idx]]
+        keys = np.sort(_float_keys(x[~np.isnan(x)]))
+        ranks = (max(np.floor((n[idx] - 1.0) * 0.5), 0.0), max(np.floor(n[idx] * 0.5), 0.0))
+        rounds = [_rank_rounds(keys, int(k)) if k < len(keys) else 1 for k in ranks]
+        ops = OPS_SELECT_FIRST
+        for r in range(1, 4):
+            live = sum(n_rounds > r for n_rounds in rounds)
+            ops += OPS_SELECT_KEY + OPS_SELECT_RANK * live if live else 0
+        out[idx] = ops
+    return out
+
+
+def _robust_scale_ops(args, result) -> float:
+    """f32 operations of the robust entry's scales and weights in one launch
+    at ``args`` (median scalers; ``result`` the kernel's), counted for what
+    this data needs: the plain version, bit-equal with the kernel, is run
+    at ``args``, and each median it takes while a pair is still iterating
+    is counted as the kernel's radix select takes it, with the rounds each
+    frame takes part in and the ranks still selecting in each."""
+    import torch
+
+    from vslam_tpu_torch.alignment import fused_solve
+
+    data, cfg = args[0], args[4]
+    if cfg.loss.function == "tdistribution" or cfg.loss.scaler == "mean":
+        raise ValueError("_robust_scale_ops counts the median scalers only")
+    calls = []
+    with _tap(fused_solve, "_bisect_median", lambda a, _: calls.append(a)):
+        fused_solve.solve_level_fused_plain(*args)
+    evals = torch.isfinite(result.chi2_history).sum(dim=1).cpu().numpy()
+    per_iteration = len(calls) // max(int(evals.max()), 1)
+    points = data.mask.sum(dim=-1).double().cpu().numpy()  # (B, F)
+    ops = 0.0
+    for c, (v, m, n) in enumerate(calls):
+        live = (evals > c // per_iteration)[:, None]
+        ops += float(((_select_point_ops(v, m, n) * points + OPS_REPLAY) * live).sum())
+    per_point = OPS_WEIGHT + (OPS_ABSDEV if cfg.loss.scaler == "reference" else 0)
+    return ops + float((evals * points.sum(axis=1)).sum()) * per_point
 
 
 def _sample_work(args, out):
@@ -544,12 +714,12 @@ DT_NS = int(1e9 / 30)
 PROFILES = {"odometry": (32, 0.01, "quadratic"), "robust": (16, 0.02, "robust")}
 
 
-def _odometry_streams():
+def _odometry_streams(profiles=tuple(PROFILES), n=ODO_FRAMES):
     """The two sequential profiles' 480x640 streams in the sensor dtypes
-    (uint8 intensity, uint16 depth at 1/5000 m) with their ground truth:
-    `bench.py:555-586` (smooth trajectory on the plane scene, re-based on
-    frame 0) and `bench.py:965-986` cut to the first 64 of its 256 frames
-    (orbit on the box scene, seed 4)."""
+    (uint8 intensity, uint16 depth at 1/5000 m) with their ground truth,
+    the first ``n`` frames of each: `bench.py:555-586` (smooth trajectory
+    on the plane scene, re-based on frame 0) and `bench.py:965-986` cut to
+    the first 64 of its 256 frames (orbit on the box scene, seed 4)."""
     from vslam_tpu_torch.core import lie_np
     from vslam_tpu_torch.io import synthetic
 
@@ -560,15 +730,17 @@ def _odometry_streams():
                  np.clip(np.round(depth * 5000.0), 0, 65535).astype(np.uint16))
                 for i, (inten, depth) in enumerate(images)]
 
-    smooth = synthetic.smooth_trajectory(ODO_FRAMES, trans_amp=0.08, rot_amp=0.03)
-    p0i = lie_np.inv(smooth[0])
-    smooth = [p @ p0i for p in smooth]
-    scene = synthetic.BoxScene(seed=4)
-    orbit = synthetic.orbit_trajectory(256, radius=0.4, height=0.05, yaw=0.12)[:ODO_FRAMES]
-    return {
-        "odometry": (smooth, encode(synthetic.render(K, p, (H, W)) for p in smooth)),
-        "robust": (orbit, encode(synthetic.render_boxes(K, p, (H, W), scene) for p in orbit)),
-    }
+    out = {}
+    if "odometry" in profiles:
+        smooth = synthetic.smooth_trajectory(ODO_FRAMES, trans_amp=0.08, rot_amp=0.03)
+        p0i = lie_np.inv(smooth[0])
+        smooth = [p @ p0i for p in smooth][:n]
+        out["odometry"] = (smooth, encode(synthetic.render(K, p, (H, W)) for p in smooth))
+    if "robust" in profiles:
+        scene = synthetic.BoxScene(seed=4)
+        orbit = synthetic.orbit_trajectory(256, radius=0.4, height=0.05, yaw=0.12)[:min(n, ODO_FRAMES)]
+        out["robust"] = (orbit, encode(synthetic.render_boxes(K, p, (H, W), scene) for p in orbit))
+    return out
 
 
 def _odometry_cfg(profile):
@@ -711,22 +883,22 @@ def _time_profile(profile, stream, camera, card, log):
         f"for {n} frames), run {fps_stream:.2f} frames/s (best of "
         f"{', '.join(f'{t:.3f}' for t in streamed)} s) {card}")
 
-    # the solve inputs the main path gives the kernel: the last frame of the
-    # first chunk, recorded per level
-    captured = {}
-    with _tap(fused_solve, "solve_level_fused", lambda args, _: captured.__setitem__(args[2].shape[-1], args)):
-        odo.run_staged(first, chunks[:1])
-    _sync()
-    widths = sorted(captured, reverse=True)  # level 0 (finest) first
+    captured = _profile_solve_inputs(odo, first, chunks)
     pose_tol = 1e-3 if cfg.alignment.image_dtype == "bfloat16" else 1e-4
     ms_k, ms_p = {}, {}
-    max_abs, failures, work = 0.0, [], np.zeros(2)
-    for level, w in enumerate(widths):
-        args = captured[w]
+    max_abs, failures, work, work_bisect = 0.0, [], np.zeros(2), np.zeros(2)
+    scale_ops, point_evals = 0.0, 0.0
+    for level, args in enumerate(captured):
         run_k = lambda: fused_solve.solve_level_fused(*args)  # noqa: E731
         run_p = lambda: fused_solve.solve_level_fused_plain(*args)  # noqa: E731
         out_k = run_k()
-        work += _solve_work(args, out_k[1])
+        if entry == "robust":
+            level_scale = _robust_scale_ops(args, out_k[1])
+            scale_ops, point_evals = scale_ops + level_scale, point_evals + _point_evals(args, out_k[1])
+            work += _solve_work(args, out_k[1], level_scale)
+            work_bisect += _solve_work(args, out_k[1], _point_evals(args, out_k[1]) * OPS_ROBUST_BISECT)
+        else:
+            work += _solve_work(args, out_k[1])
         err, ok = _check(out_k, run_p(), pose_tol, log,
                          f"{profile} profile level {level} {entry} kernel vs plain at the main path's inputs")
         max_abs = max(max_abs, err)
@@ -737,12 +909,18 @@ def _time_profile(profile, stream, camera, card, log):
         p2 = _events_ms(run_p, 2)
         ms_p[level] = min(p1, p2)
         ms_k[level], seen = _kernel_device_ms(run_k, 20, "solve_level_kernel")
-        log(f"{profile} profile level {level} ({args[2].shape[-2]}x{w}, F={args[0].templ.shape[1]}, "
+        log(f"{profile} profile level {level} ({args[2].shape[-2]}x{args[2].shape[-1]}, F={args[0].templ.shape[1]}, "
             f"P={args[0].templ.shape[-1]}, {entry} entry): kernel {ms_k[level]:.4f} ms on the device "
             f"(profiler, mean of {seen} recorded of 20 launches), wrapper call {k1:.4f} ms, plain {ms_p[level]:.3f} ms (events, "
             f"runs plain,kernel,plain: {p1:.3f}, {k1:.4f}, {p2:.3f}) {card}")
     if failures:
         raise AssertionError(f"{profile} profile: kernel and plain disagree at levels {failures}")
+    if entry == "robust":
+        (b_new, by_new), (b_old, by_old) = _bound(*work), _bound(*work_bisect)
+        log(f"{profile} profile bound over 3 levels: {b_new:.6f} ms ({by_new}) with this design's "
+            f"scale as this run's data needs it ({scale_ops:.0f} operations, "
+            f"{scale_ops / max(point_evals, 1.0):.2f} per point and iteration), {b_old:.6f} ms ({by_old}) "
+            f"with the 24-pass bisection's {OPS_ROBUST_BISECT} per point and iteration")
     frame_ms = 1e3 / fps
 
     def layers():
@@ -757,7 +935,63 @@ def _time_profile(profile, stream, camera, card, log):
         log(f"{profile} profile layers per step, host time under torch.profiler (mean of {k} steps): "
             f"{parts}; outside the steps (first frame, fetch) {outside / k:.3f} ms per step {card}")
 
-    return ms_k, ms_p, max_abs, layers, _bound(*work)
+    return ms_k, ms_p, max_abs, layers, _bound(*work), captured
+
+
+def _profile_solve_inputs(odo, first, chunks):
+    """The solve inputs the main path gives the kernel: those of the last
+    frame of the first chunk, one argument tuple per level, finest first."""
+    from vslam_tpu_torch.alignment import fused_solve
+
+    captured = {}
+    with _tap(fused_solve, "solve_level_fused", lambda args, _: captured.__setitem__(args[2].shape[-1], args)):
+        odo.run_staged(first, chunks[:1])
+    _sync()
+    return [captured[w] for w in sorted(captured, reverse=True)]
+
+
+SPLIT_ITERATIONS = (1, 2, 4, 8)
+
+
+def _solve_split(args, label, card, log):
+    """Where an iteration of the whole-level kernel goes, at one level's
+    inputs: device ms (profiler, 20 launches) with max_iterations in
+    SPLIT_ITERATIONS, with the interest mask as given and thinned to every
+    8th point (n_constraints recomputed), fitted by least squares as
+    t = launch + iterations x (fixed + per_point x points), where
+    iterations is the largest count of evaluated iterations over the pairs
+    and points the mean interest points per pair (all frames). Returns
+    (launch us, fixed us per iteration, per-point ns per iteration)."""
+    import dataclasses
+
+    import torch
+
+    from vslam_tpu_torch.alignment import fused_solve
+
+    data, rel0, img, cam, cfg, xp = args
+    every8 = torch.zeros_like(data.mask)
+    every8[..., ::8] = True
+    thin = data.mask & every8
+    masks = {"all": data, "every 8th": data._replace(mask=thin, n_constraints=thin.sum(-1).float())}
+    rows, groups = [], []
+    for name, d in masks.items():
+        points = float(d.mask.sum(dim=(1, 2)).float().mean())
+        for n_it in SPLIT_ITERATIONS:
+            c = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, max_iterations=n_it))
+            run = (lambda d, c: lambda: fused_solve.solve_level_fused(d, rel0, img, cam, c, xp))(d, c)
+            rows.append([name, n_it, int(_evaluated(run()[1].chi2_history)), points])
+            groups.append((run, 20, "solve_level_kernel"))
+    for row, ms in zip(rows, _device_ms_batch(groups)):
+        row.append(ms)
+    X = np.array([[1.0, e, e * p] for _, _, e, p, _ in rows])
+    y = np.array([r[-1] for r in rows]) * 1e3
+    (launch, fixed, per_point), *_ = np.linalg.lstsq(X, y, rcond=None)
+    B_, F_, P_ = data.mask.shape
+    log(f"split {label} (B={B_}, F={F_}, P={P_}): " + "; ".join(
+        f"{n} max_it {i}: {e} it, {p:.0f} pts, {ms * 1e3:.2f} us" for n, i, e, p, ms in rows) + f" {card}")
+    log(f"split {label}: fit t = {launch:.2f} us + iterations x ({fixed:.3f} us + {per_point * 1e3:.3f} ns "
+        f"x points) {card}")
+    return launch, fixed, per_point * 1e3
 
 
 def _samplers_vs_plain(problems, frames, kernels, log):
@@ -1063,6 +1297,147 @@ def _time_paths(frames, cfgs, align_vlog, card, log):
             f"(host clock, runs {', '.join(f'{t:.3f}' for t in times)}) {card}")
 
 
+CTAS_TRIED = (1, 2, 4, 8)
+# design constants of fused_solve.cu set in the sweep, one dict per build
+SOLVE_SWEEP = tuple({"kCtas": c} for c in CTAS_TRIED)
+MXU_ROUNDS = 5
+
+
+def _source_constant(source: str, name: str) -> int:
+    from vslam_tpu_torch import _build
+
+    return int(re.search(rf"constexpr int {name} = (\d+);", (_build.SRC_DIR / source).read_text())[1])
+
+
+def _solve_key(constants: dict):
+    return ("solve", tuple(sorted(constants.items())))
+
+
+def _start_variants():
+    """Start the nvcc of the whole-level kernel's variants the sweep
+    measures (one process each, all together): each dict of design
+    constants of SOLVE_SWEEP but the source's own. Returns
+    (`_build.Variants`, their keys)."""
+    from vslam_tpu_torch import _build
+
+    keys, specs = [], []
+    for v in SOLVE_SWEEP:
+        if any(_source_constant("fused_solve.cu", k) != x for k, x in v.items()):
+            keys.append(_solve_key(v))
+            specs.append(("fused_solve", dict(v)))
+    return _build.Variants(specs), keys
+
+
+def _max_clusters(args, lib=None) -> str:
+    """'n of B': the most clusters of the whole-level launch at ``args``
+    that the card holds at once, beside the B pairs it launches."""
+    import ctypes
+
+    from vslam_tpu_torch import _build
+
+    data, _, image, _, cfg, _ = args
+    B, F, P = data.mask.shape
+    if not image.is_cuda:
+        return f"? of {B}"
+    n = ctypes.c_int(0)
+    err = (_build.library() if lib is None else lib).vslam_solve_level_clusters(
+        B, F, P, int(cfg.loss.function != "None"), int(cfg.image_dtype == "bfloat16"),
+        int(cfg.interpolation == "bilinear"), ctypes.byref(n))
+    return f"{n.value if err == 0 else f'error {err}'} of {B}"
+
+
+def _solve_result_diff(got, want) -> float:
+    (rel_k, res_k), (rel_p, res_p) = got, want
+    fields = lambda rel, res: (rel.R, rel.t, res.A, res.b, res.chi2, res.iterations.float(),  # noqa: E731
+                               res.chi2_history, res.step_history)
+    return _max_abs_diff(fields(rel_k, res_k), fields(rel_p, res_p))
+
+
+def _solve_sweep(inputs, libs, card, log):
+    """The whole-level kernel built with each dict of design constants of
+    SOLVE_SWEEP (the package's own build where they are the source's),
+    at every level's main-path inputs of each path of ``inputs`` ({label:
+    per-level arguments}: `align_pairs` at B = 64, the odometry and the
+    robust profile at B = 1): each held bit for bit against the plain
+    version summing in its CTA count's order, then timed (device ms,
+    profiler, 20 launches) beside its evaluated iterations (the most over
+    the pairs), which the sum order can move. Returns {(constants, label):
+    ms over the 3 levels}."""
+    from vslam_tpu_torch.alignment import fused_solve
+
+    times = {}
+    for v in SOLVE_SWEEP:
+        lib = libs.get(_solve_key(v))
+        c = v.get("kCtas", _source_constant("fused_solve.cu", "kCtas"))
+        name = " ".join(f"{k}={x}" for k, x in v.items())
+        groups, evals = [], []
+        for label in inputs:
+            for args in inputs[label]:
+                run = (lambda args: lambda: fused_solve._from_out(args[1], *fused_solve._launch(*args, lib=lib)))(args)
+                got = run()
+                err = _solve_result_diff(got, fused_solve.solve_level_fused_plain(*args, ctas=c))
+                if err != 0.0:
+                    raise AssertionError(f"{name} {label}: kernel and plain (ctas={c}) differ by {err}")
+                evals.append(int(_evaluated(got[1].chi2_history)))
+                groups.append((run, 20, "solve_level_kernel"))
+        ms = _device_ms_batch(groups)
+        for i, label in enumerate(inputs):
+            levels = list(zip(ms[3 * i:3 * i + 3], evals[3 * i:3 * i + 3], inputs[label]))
+            total = sum(m for m, _, _ in levels)
+            times[(tuple(v.items()), label)] = total
+            log(f"sweep {label} {name}: {total:.4f} ms over 3 levels (" + " / ".join(
+                f"{m:.4f} ms {e} it, {_max_clusters(a, lib)} clusters at once" for m, e, a in levels)
+                + f"), bit-equal with the plain version at ctas={c} {card}")
+    for label in inputs:
+        log(f"sweep {label}: " + ", ".join(
+            f"{' '.join(f'{k}={x}' for k, x in v.items())} {times[(tuple(v.items()), label)]:.4f} ms"
+            for v in SOLVE_SWEEP) + f"; the source's kCtas = {_source_constant('fused_solve.cu', 'kCtas')} {card}")
+    return times
+
+
+def _evaluated(history):
+    """Evaluated iterations of a launch: the most finite history entries
+    over its pairs."""
+    import torch
+
+    return torch.isfinite(history).sum(dim=1).max()
+
+
+def _mxu_alternated(by_width, card, log):
+    """Kernel 4 against grid_sample (bilinear, zeros, align_corners) at each
+    level of the `align_pairs` mxu run, in alternation: MXU_ROUNDS rounds of
+    kernel, grid_sample, grid_sample, kernel, 20 calls each, in one
+    profiler window. Returns {width: (kernel mean ms, grid_sample mean ms,
+    kernel spread, grid_sample spread)}, spread = max - min over the
+    rounds."""
+    import torch
+
+    from vslam_tpu_torch.alignment import pallas_kernels as pk
+
+    out = {}
+    for width, args in sorted(by_width.items(), reverse=True):
+        img, u, v = args
+        Hl, Wl = img.shape[-2:]
+        grid = torch.stack([u / (Wl - 1) * 2 - 1, v / (Hl - 1) * 2 - 1], dim=-1)[:, None]
+        run_lib = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+            img[:, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+        run_k = lambda: pk.bilinear_sample_mxu(*args)  # noqa: E731
+        order = [run_k, run_lib, run_lib, run_k] * MXU_ROUNDS
+        ms = _device_ms_batch([(fn, 20, None if fn is run_lib else "sample_mxu_kernel") for fn in order])
+        ks = [m for fn, m in zip(order, ms) if fn is run_k]
+        gs = [m for fn, m in zip(order, ms) if fn is run_lib]
+        km, gm = float(np.mean(ks)), float(np.mean(gs))
+        kspread, gspread = max(ks) - min(ks), max(gs) - min(gs)
+        verdict = ("at or below" if km <= gm else
+                   "within the spread of" if km - gm <= max(kspread, gspread) else "slower than")
+        out[width] = (km, gm, kspread, gspread)
+        log(f"mxu alternated {Hl}x{Wl} level ({u.shape[1]} points per pair, B={u.shape[0]}): kernel "
+            f"{km * 1e3:.3f} us (spread {kspread * 1e3:.3f}), grid_sample {gm * 1e3:.3f} us (spread "
+            f"{gspread * 1e3:.3f}), {MXU_ROUNDS} rounds kernel,grid_sample,grid_sample,kernel: the kernel "
+            f"is {verdict} grid_sample {card}")
+    return out
+
+
 def result_line(kind: str) -> dict:
     """The contract's last line: the run used one device, cuda:0."""
     return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}
@@ -1103,12 +1478,15 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible, using cuda:0")
     _sync()
 
-    # 2. build
+    # 2. build, with the sweep's variants
     t0 = time.perf_counter()
+    variants, variant_keys = _start_variants()
     lib_paths, ptxas = _build.build(verbose=True)
     _build.library()
-    log(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source, started together -> "
-        f"{', '.join(p.name for p in lib_paths)} in {time.perf_counter() - t0:.2f} s")
+    variant_libs = dict(zip(variant_keys, variants.load()))
+    log(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source and per sweep variant "
+        f"({len(variant_keys)}), started together -> {', '.join(p.name for p in lib_paths)} in "
+        f"{time.perf_counter() - t0:.2f} s")
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
@@ -1223,7 +1601,7 @@ def main() -> int:
         f"align_pairs) {ms_frame:.3f} ms {card}")
     bound_pairs = _bound(*work)
     profile_times = {name: _time_profile(name, streams[name][1], camera, card, log) for name in PROFILES}
-    ms_k_robust, ms_p_robust, err_robust, _, bound_robust = profile_times["robust"]
+    ms_k_robust, ms_p_robust, err_robust, _, bound_robust, robust_inputs = profile_times["robust"]
     max_abs = max(max_abs, profile_times["odometry"][2])
     max_abs_robust = max(max_abs_robust, err_robust)
 
@@ -1244,6 +1622,19 @@ def main() -> int:
     # 12. times of the new kernels and paths
     times_new = _time_samplers(kernels, captured, card, log)
     _time_paths(frames, cfgs, align_vlog, card, log)
+
+    # 13. where an iteration of the whole-level kernel goes, both entries
+    pairs_inputs = [args for _, (_, args) in sorted(inputs.items())]
+    _solve_split(pairs_inputs[0], "align_pairs", card, log)
+    _solve_split(robust_inputs[0], "robust profile", card, log)
+
+    # 14. the CTA count of the whole-level kernel
+    _solve_sweep({"align_pairs": pairs_inputs, "odometry profile": profile_times["odometry"][5],
+                  "robust profile": robust_inputs}, variant_libs, card, log)
+
+    # 15. kernel 4 against grid_sample in alternation
+    _mxu_alternated(captured["bilinear_sample_mxu"], card, log)
+    _sync()
     for name in PROFILES:  # the long profiler windows last: no kernel timing follows them
         profile_times[name][3]()
     _sync()

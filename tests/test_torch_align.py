@@ -78,9 +78,9 @@ def test_align_pairs_matches_jax(pairs, sampler):
     rel0 = JSE3(jnp.broadcast_to(jnp.eye(3, dtype=jnp.float32), (B, 3, 3)), jnp.zeros((B, 3), jnp.float32))
     rel_j, cov_j, valid_j = _np_tree(j_align_pairs(ref, cur, rel0, None, cfg))
     rel_t, cov_t, valid_t = t_align_pairs(
-        interop.frame_from_numpy(_np_tree(ref)),
-        interop.frame_from_numpy(_np_tree(cur)),
-        interop.se3_from_numpy(_np_tree(rel0)),
+        interop.frame_from_numpy(_np_tree(ref), device="cpu"),
+        interop.frame_from_numpy(_np_tree(cur), device="cpu"),
+        interop.se3_from_numpy(_np_tree(rel0), device="cpu"),
         None,
         interop.alignment_config_from_fields(dataclasses.asdict(cfg)),
     )
@@ -116,7 +116,7 @@ def test_rgbd_aligner_stacked_with_prior_matches_jax(sampler):
     )
     pred = lie_np.exp(xi12) @ p1
     pose_j, cov_j, ok_j = JRgbdAligner(cfg).align(frames[:2], [p0, p1], frames[2], pred)
-    t_frames = [interop.frame_from_numpy(_np_tree(f)) for f in frames]
+    t_frames = [interop.frame_from_numpy(_np_tree(f), device="cpu") for f in frames]
     t_cfg = interop.alignment_config_from_fields(dataclasses.asdict(cfg))
     pose_t, cov_t, ok_t = TRgbdAligner(t_cfg).align(t_frames[:2], [p0, p1], t_frames[2], pred)
     assert ok_j and ok_t

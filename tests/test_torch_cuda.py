@@ -38,7 +38,7 @@ def device():
     return torch.device("cuda", 0)
 
 
-def _problem(device, B, F, max_points, seed=0):
+def _problem(device, B, F, max_points, seed=0, integer=False):
     K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
     cam = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2, device=device)
     rng = np.random.default_rng(seed)
@@ -50,11 +50,13 @@ def _problem(device, B, F, max_points, seed=0):
         for f in range(F):
             pose = lie_np.exp(xi * f / F)
             inten, depth = synthetic.render(K, pose, (H, W), scene)
+            inten = np.round(inten) if integer else inten
             ref_f.append(create_frame(torch.as_tensor(inten, device=device),
                                       torch.as_tensor(depth, device=device), cam, n_levels=1))
             rels.append(lie_np.relative(pose, lie_np.exp(0.9 * xi)))
         refs.append(stack_frames(ref_f))
         inten, depth = synthetic.render(K, lie_np.exp(xi), (H, W), scene)
+        inten = np.round(inten) if integer else inten
         curs.append(create_frame(torch.as_tensor(inten, device=device),
                                  torch.as_tensor(depth, device=device), cam, n_levels=1))
     ref, cur = stack_frames(refs), stack_frames(curs)
@@ -134,6 +136,132 @@ def test_robust_kernel_equals_plain_bit_for_bit(device, function, scaler, F, int
                  (res_k.chi2, res_p.chi2), (res_k.valid, res_p.valid),
                  (res_k.chi2_history, res_p.chi2_history), (res_k.step_history, res_p.step_history)]:
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+_PROBLEMS = {}
+
+
+def _cached_problem(device, B, F, max_points, integer=False):
+    key = (B, F, max_points, integer)
+    if key not in _PROBLEMS:
+        _PROBLEMS[key] = _problem(device, B, F, max_points, integer=integer)
+    return _PROBLEMS[key]
+
+
+def _assert_solves_equal(out_k, out_p):
+    (rel_k, res_k), (rel_p, res_p) = out_k, out_p
+    assert res_k.iterations.tolist() == res_p.iterations.tolist()
+    for a, b in [(rel_k.R, rel_p.R), (rel_k.t, rel_p.t), (res_k.A, res_p.A), (res_k.b, res_p.b),
+                 (res_k.chi2, res_p.chi2), (res_k.valid, res_p.valid),
+                 (res_k.chi2_history, res_p.chi2_history), (res_k.step_history, res_p.step_history)]:
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("B,F,max_points,integer", [(1, 2, 300, False), (64, 1, 300, False),
+                                                    (3, 2, 100, False), (1, 2, 300, True)],
+                         ids=["B1-F2", "B64-F1", "P-below-one-block-per-CTA", "B1-F2-integer-images"])
+@pytest.mark.parametrize("function,scaler", ROBUST_CASES)
+def test_robust_kernel_equals_plain_at_the_main_path_batches(device, function, scaler, B, F, max_points,
+                                                             integer):
+    """Every loss x scaler at the robust profile's stacking (B = 1, F = 2),
+    at align_pairs' batch (B = 64, F = 1), with fewer points than
+    256 x CTAS, so some blocks of a cluster hold few or no points, and on
+    integer-valued images (integer residuals, whose median buckets end the
+    select early): bit for bit."""
+    data, rel0, img, cam, x_pred = _cached_problem(device, B, F, max_points, integer)
+    assert max_points > 100 or data.templ.shape[-1] < 256 * fused_solve.CTAS
+    cfg = ic.AlignmentConfig(
+        min_gradient=10.0, solver=SolverConfig(30, 1e-11, min_relative_reduction=1e-4),
+        loss=LossConfig(function, scaler=scaler), include_prior=F > 1,
+        prior_weight=(FX / 525.0) ** 2, interpolation="nearest", sampler="fused_gn",
+        image_dtype="bfloat16", max_points=max_points,
+    )
+    xp = x_pred if F > 1 else None
+    out_k = fused_solve.solve_level_fused(data, rel0, img, cam, cfg, xp)
+    out_p = fused_solve.solve_level_fused_plain(data, rel0, img, cam, cfg, xp)
+    torch.cuda.synchronize()
+    _assert_solves_equal(out_k, out_p)
+
+
+@pytest.mark.parametrize("loss", ["None", "Huber"])
+def test_kernel_with_an_empty_mask_equals_plain(device, loss):
+    """No interest point at all: the solve stops at its first iteration,
+    kernel and plain alike."""
+    data, rel0, img, cam, _ = _cached_problem(device, 5, 2, 300)
+    data = data._replace(mask=torch.zeros_like(data.mask), n_constraints=torch.zeros_like(data.n_constraints))
+    cfg = ic.AlignmentConfig(min_gradient=10.0, loss=LossConfig(loss), sampler="fused_gn", max_points=300)
+    out_k = fused_solve.solve_level_fused(data, rel0, img, cam, cfg, None)
+    out_p = fused_solve.solve_level_fused_plain(data, rel0, img, cam, cfg, None)
+    torch.cuda.synchronize()
+    _assert_solves_equal(out_k, out_p)
+    assert not bool(out_k[1].valid.any())
+
+
+def test_robust_wrapper_raises_where_the_residual_cache_does_not_fit(device):
+    """A frame of 2^20 points needs more shared memory per block than the
+    card has for the robust entry's residual cache: the wrapper raises and
+    launches nothing (the quadratic entry, which keeps no cache, runs)."""
+    B, F, P = 1, 1, 1 << 20
+    g = torch.Generator(device=device).manual_seed(0)
+    data = ic.ICLevelData(
+        pcl=torch.rand(B, F, P, 3, device=device, generator=g) + torch.tensor([0.0, 0.0, 1.0], device=device),
+        J=torch.randn(B, F, P, 6, device=device, generator=g),
+        templ=torch.rand(B, F, P, device=device, generator=g) * 255,
+        mask=torch.ones(B, F, P, dtype=torch.bool, device=device),
+        n_constraints=torch.full((B, F), float(P), device=device))
+    rel0 = SE3(torch.eye(3, device=device).expand(B, F, 3, 3).contiguous(), torch.zeros(B, F, 3, device=device))
+    cam = Camera(*(torch.full((B,), v, device=device) for v in (10.0, 10.0, 7.5, 5.5)))
+    img = torch.rand(B, 12, 16, device=device, generator=g) * 255
+    before = (fused_solve.LAUNCHES, fused_solve.ROBUST_LAUNCHES)
+    cfg = ic.AlignmentConfig(sampler="fused_gn", loss=LossConfig("Huber"), solver=SolverConfig(2))
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_solve.solve_level_fused(data, rel0, img, cam, cfg, None)
+    assert (fused_solve.LAUNCHES, fused_solve.ROBUST_LAUNCHES) == before
+    fused_solve.solve_level_fused(data, rel0, img, cam, dataclasses.replace(cfg, loss=LossConfig()), None)
+    torch.cuda.synchronize()
+    assert fused_solve.LAUNCHES == before[0] + 1
+
+
+@pytest.mark.parametrize("F", [1, 2])
+@pytest.mark.parametrize("loss", ["None", "Huber"])
+def test_kernel_reading_unstaged_level_data_equals_plain(device, loss, F):
+    """Frames of 2^15 points: the level data of a block's share does not fit
+    in shared memory beside the kernel's state (and, robust, the residual
+    cache), so the kernel reads pcl, J, template and mask from global memory
+    every iteration. Bit for bit against the plain version."""
+    import ctypes
+
+    from vslam_tpu_torch import _build
+
+    B, P, Hi, Wi = 2, 1 << 15, 120, 160
+    need, limit = ctypes.c_int(0), ctypes.c_int(0)
+    assert _build.library().vslam_solve_level_smem(F, P, int(loss != "None"), ctypes.byref(need),
+                                                   ctypes.byref(limit)) == 0
+    # staging adds 12 + 24 + 4 + 1 bytes per point of each frame's share
+    share = -(-P // (16 * fused_solve.CTAS)) * 16
+    assert need.value <= limit.value < need.value + 41 * F * share
+    g = torch.Generator(device=device).manual_seed(F)
+    xy = torch.rand(B, F, P, 2, device=device, generator=g) - 0.5
+    z = 1.0 + torch.rand(B, F, P, 1, device=device, generator=g)
+    data = ic.ICLevelData(
+        pcl=torch.cat([xy * z, z], dim=-1).contiguous(),
+        J=torch.randn(B, F, P, 6, device=device, generator=g),
+        templ=torch.rand(B, F, P, device=device, generator=g) * 255,
+        mask=torch.rand(B, F, P, device=device, generator=g) < 0.9,
+        n_constraints=torch.zeros(B, F, device=device))
+    data = data._replace(n_constraints=data.mask.sum(-1).float())
+    rel0 = SE3(torch.eye(3, device=device).expand(B, F, 3, 3).contiguous(), torch.zeros(B, F, 3, device=device))
+    cam = Camera(*(torch.full((B,), v, device=device) for v in (100.0, 100.0, (Wi - 1) / 2, (Hi - 1) / 2)))
+    img = torch.rand(B, Hi, Wi, device=device, generator=g) * 255
+    cfg = ic.AlignmentConfig(min_gradient=10.0, sampler="fused_gn", loss=LossConfig(loss),
+                             solver=SolverConfig(8, 1e-11, min_relative_reduction=1e-4), image_dtype="float32")
+    before = fused_solve.LAUNCHES
+    out_k = fused_solve.solve_level_fused(data, rel0, img, cam, cfg, None)
+    out_p = fused_solve.solve_level_fused_plain(data, rel0, img, cam, cfg, None)
+    torch.cuda.synchronize()
+    assert fused_solve.LAUNCHES == before + 1
+    assert int(out_k[1].iterations.max()) >= 1
+    _assert_solves_equal(out_k, out_p)
 
 
 def test_kernel_wrapper_refuses_bad_inputs(device):
@@ -216,6 +344,22 @@ def test_mxu_kernel_equals_plain_bit_for_bit(device):
     assert pallas_kernels.MXU_LAUNCHES == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert bool((got == 0).any()) and bool((got != 0).any())
+
+
+@pytest.mark.parametrize("M,offset", [(5001, 0), (4097, 1), (3, 0)],
+                         ids=["ragged", "unaligned", "fewer-than-one-thread"])
+def test_mxu_kernel_with_ragged_and_unaligned_points(device, M, offset):
+    """M not a multiple of a block's points, and coordinates that start off
+    a 16-byte boundary: bit for bit."""
+    rng = np.random.default_rng(M)
+    B = 3
+    img = torch.as_tensor(rng.uniform(0, 255, (B, H, W)).astype(np.float32), device=device)
+    flat = torch.as_tensor(rng.uniform(-3, W + 2, B * M + offset).astype(np.float32), device=device)
+    u = flat[offset:].view(B, M)
+    v = torch.as_tensor(rng.uniform(-3, H + 2, (B, M)).astype(np.float32), device=device)
+    got = pallas_kernels.bilinear_sample_mxu(img, u, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pallas_kernels.bilinear_sample_mxu_plain(img, u, v), rtol=0, atol=0)
 
 
 def test_align_pairs_per_iteration_samplers_launch_every_iteration(device):

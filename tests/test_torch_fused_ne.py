@@ -78,8 +78,10 @@ def _inputs(level, F, image_dtype):
     t_img = torch.as_tensor(np.array(img))[None]
     if image_dtype == "bfloat16":
         t_img = t_img.to(torch.bfloat16)
-    t_cam = interop.camera_from_numpy(jax.tree_util.tree_map(lambda x: np.asarray(x)[None], cam))
-    port = (interop.level_data_from_numpy(one(data)), interop.se3_from_numpy(one(rel)), t_img, t_cam)
+    t_cam = interop.camera_from_numpy(jax.tree_util.tree_map(lambda x: np.asarray(x)[None], cam),
+                                      device="cpu")
+    port = (interop.level_data_from_numpy(one(data), device="cpu"),
+            interop.se3_from_numpy(one(rel), device="cpu"), t_img, t_cam)
     return (pack, j_img, rel, cam), port, data.templ.shape[1]
 
 

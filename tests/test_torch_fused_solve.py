@@ -110,11 +110,11 @@ class _Problem:
 
     def torch_args(self):
         one = lambda tree: jax.tree_util.tree_map(lambda x: np.asarray(x)[None], tree)  # noqa: E731
-        cur = interop.frame_from_numpy(one(self.cur))
+        cur = interop.frame_from_numpy(one(self.cur), device="cpu")
         x_pred = None if self.x_pred is None else torch.as_tensor(np.array(self.x_pred)[None])
         return (
-            interop.level_data_from_numpy(one(self.data)),
-            interop.se3_from_numpy(one(self.rel0)),
+            interop.level_data_from_numpy(one(self.data), device="cpu"),
+            interop.se3_from_numpy(one(self.rel0), device="cpu"),
             cur.intensity[0],
             cur.cameras[0],
             interop.alignment_config_from_fields(dataclasses.asdict(self.cfg)),

@@ -9,6 +9,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -139,6 +140,16 @@ def test_unknown_sampler_raises():
         tic.solve_level(data, rel0, img, cam, tic.AlignmentConfig(sampler="onehot"), None)
 
 
+# numpy stand-ins of the JAX package's state, read by field name as interop reads them
+_NP_CAM = types.SimpleNamespace(fx=1.0, fy=1.0, cx=0.0, cy=0.0)
+_NP_POSE = types.SimpleNamespace(R=np.eye(3), t=np.zeros(3))
+_NP_LEVEL = types.SimpleNamespace(pcl=np.zeros((2, 3)), J=np.zeros((2, 6)), templ=np.zeros(2),
+                                  mask=np.ones(2, bool), n_constraints=np.float32(2.0))
+_NP_FRAME = types.SimpleNamespace(intensity=[np.zeros((4, 6))], depth=[np.ones((4, 6))], dIx=[np.zeros((4, 6))],
+                                  dIy=[np.zeros((4, 6))], cameras=[_NP_CAM], pose=_NP_POSE)
+_NP_EKF = types.SimpleNamespace(pose=_NP_POSE, velocity=np.zeros(6), P=np.eye(12), Q=np.eye(12))
+
+
 @pytest.mark.parametrize(
     "make",
     [
@@ -147,8 +158,16 @@ def test_unknown_sampler_raises():
         lambda: ekf_se3.init().P,
         lambda: stage_stream(iter([(0, np.zeros((4, 6), np.uint8), np.zeros((4, 6), np.uint16))] * 2),
                              1)[1][0].intensity,
+        lambda: interop.camera_from_numpy(_NP_CAM).fx,
+        lambda: interop.se3_from_numpy(_NP_POSE).R,
+        lambda: interop.frame_from_numpy(_NP_FRAME).intensity[0],
+        lambda: interop.level_data_from_numpy(_NP_LEVEL).pcl,
+        lambda: interop.level_data_tuple_from_numpy([_NP_LEVEL])[0].J,
+        lambda: interop.ekf_state_from_numpy(_NP_EKF).P,
     ],
-    ids=["Camera.create", "se3.identity", "ekf_se3.init", "stage_stream"],
+    ids=["Camera.create", "se3.identity", "ekf_se3.init", "stage_stream", "interop.camera_from_numpy",
+         "interop.se3_from_numpy", "interop.frame_from_numpy", "interop.level_data_from_numpy",
+         "interop.level_data_tuple_from_numpy", "interop.ekf_state_from_numpy"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device named, an entry point puts its tensors on CUDA, and
@@ -184,6 +203,19 @@ def test_chip_smoke_result_line_keeps_the_contract():
     line = json.loads(json.dumps(chip_smoke.result_line("NVIDIA H100 80GB HBM3")))
     assert line == {"ok": True, "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3",
                                            "count": 1}}
+
+
+@pytest.mark.parametrize("source,name,mirror", [("fused_solve.cu", "kCtas", "CTAS"),
+                                                ("fused_solve.cu", "kShareAlign", "_SHARE_ALIGN"),
+                                                ("warp_sample.cuh", "kThreads", "_THREADS")])
+def test_plain_version_mirrors_the_kernel_constants(source, name, mirror):
+    """The plain whole-level solve sums in the kernel's order only while its
+    constants are the CUDA source's."""
+    import re
+
+    text = (_build.SRC_DIR / source).read_text()
+    (value,) = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert int(value) == getattr(fused_solve, mirror)
 
 
 def test_build_names_the_hopper_target_and_refuses_without_nvcc(monkeypatch):

@@ -62,7 +62,7 @@ def _ekf_states(seed, count=3):
 def _batch(states):
     """Stack JAX states into the port's batched EkfState."""
     stacked = jax.tree_util.tree_map(lambda *xs: np.stack([np.asarray(x) for x in xs]), *states)
-    return interop.ekf_state_from_numpy(stacked)
+    return interop.ekf_state_from_numpy(stacked, device="cpu")
 
 
 def _assert_ekf_close(port, jax_states, **tol):
@@ -77,7 +77,7 @@ def test_ekf_init_matches_jax():
     T = lie_np.exp(np.array([0.1, -0.2, 0.3, 0.05, 0.02, -0.1]))
     pose = JSE3(jnp.asarray(T[:3, :3], jnp.float32), jnp.asarray(T[:3, 3], jnp.float32))
     j = jekf.init(pose, process_noise=3e-3)
-    t = tekf.init(interop.se3_from_numpy(pose), process_noise=3e-3)
+    t = tekf.init(interop.se3_from_numpy(pose, device="cpu"), process_noise=3e-3)
     for a, b in zip(jax.tree_util.tree_leaves(j), (t.pose.R, t.pose.t, t.velocity, t.P, t.Q)):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=0)
 
@@ -175,14 +175,15 @@ def test_tracking_step_matches_jax():
 
     to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
     t_ekf, t_rel, t_valid = t_tracking_step(
-        interop.ekf_state_from_numpy(to_np(ekf0)), interop.frame_from_numpy(to_np(ref)),
-        interop.frame_from_numpy(to_np(cur)), torch.full((2,), dt),
+        interop.ekf_state_from_numpy(to_np(ekf0), device="cpu"),
+        interop.frame_from_numpy(to_np(ref), device="cpu"),
+        interop.frame_from_numpy(to_np(cur), device="cpu"), torch.full((2,), dt),
         interop.alignment_config_from_fields(dataclasses.asdict(cfg)),
     )
     assert t_valid.tolist() == j_valid.tolist() == [True, True]
     np.testing.assert_allclose(t_rel.R.numpy(), j_rel.R, atol=1e-3)
     np.testing.assert_allclose(t_rel.t.numpy(), j_rel.t, atol=1e-3)
-    d = tse3.log(tse3.compose(tse3.inverse(interop.se3_from_numpy(j_rel)), t_rel)).norm(dim=-1)
+    d = tse3.log(tse3.compose(tse3.inverse(interop.se3_from_numpy(j_rel, device="cpu")), t_rel)).norm(dim=-1)
     assert float(d.max()) < 1e-3
     np.testing.assert_allclose(t_ekf.velocity.numpy(), j_ekf.velocity, atol=1e-2)
     np.testing.assert_allclose(t_ekf.P.numpy(), j_ekf.P, rtol=1e-3, atol=1e-5)

@@ -54,7 +54,7 @@ def _jax_level(frame, level, min_gradient, max_points):
 
 
 def _torch_level(frame, level, min_gradient, max_points):
-    tf = interop.frame_from_numpy(frame)
+    tf = interop.frame_from_numpy(frame, device="cpu")
     return tic.precompute_level(
         tf.intensity[level], tf.dIx[level], tf.dIy[level], tf.depth[level],
         tf.cameras[level], min_gradient, max_points=max_points,
@@ -87,7 +87,7 @@ def test_precompute_level_batched_over_pairs_and_frames():
     """(B, F, H, W) inputs with per-pair (B,) cameras give, per slice, the
     JAX result of that single frame."""
     frames = [_frame(48, 64, seed=s) for s in (1, 2, 3, 4)]
-    tfs = [interop.frame_from_numpy(f) for f in frames]
+    tfs = [interop.frame_from_numpy(f, device="cpu") for f in frames]
     level, grad, budget = 0, 10.0, 512
 
     def stack(name):
@@ -106,7 +106,7 @@ def test_precompute_level_batched_over_pairs_and_frames():
 def test_interop_level_data_roundtrip():
     frame = _frame(48, 64, seed=2)
     jd = _jax_level(frame, 0, 10.0, 256)
-    td = interop.level_data_from_numpy(jd)
+    td = interop.level_data_from_numpy(jd, device="cpu")
     assert td.mask.dtype == torch.bool and td.pcl.dtype == torch.float32
     _compare(jd, td)
 
@@ -135,7 +135,7 @@ def test_precompute_frame_matches_jax(normalize):
     jcfg = jic.AlignmentConfig(min_gradient=10.0, max_points=1024, normalize_intensity=normalize)
     jframe = jax.tree_util.tree_map(jnp.asarray, frame)
     want = jax.tree_util.tree_map(np.asarray, jic.precompute_frame(jframe, jcfg))
-    got = tic.precompute_frame(interop.frame_from_numpy(frame),
+    got = tic.precompute_frame(interop.frame_from_numpy(frame, device="cpu"),
                                tic.AlignmentConfig(min_gradient=10.0, max_points=1024,
                                                    normalize_intensity=normalize))
     assert len(got) == len(want) == 2
@@ -159,8 +159,8 @@ def test_align_with_cached_ref_data_equals_uncached(normalize):
     kw = dict(min_gradient=10.0, max_points=1024, normalize_intensity=normalize,
               prior_weight=(525.0 * 64 / 640 / 525.0) ** 2)
     cfg = tic.AlignmentConfig(**kw)
-    ref = tree_map(lambda x: x[None, None], interop.frame_from_numpy(f_ref))
-    cur = tree_map(lambda x: x[None], interop.frame_from_numpy(f_cur))
+    ref = tree_map(lambda x: x[None, None], interop.frame_from_numpy(f_ref, device="cpu"))
+    cur = tree_map(lambda x: x[None], interop.frame_from_numpy(f_cur, device="cpu"))
     rel0 = SE3(torch.eye(3)[None, None], torch.zeros(1, 1, 3))
     xp = torch.zeros(1, 1, 6)
     plain = tic.align(ref, cur, rel0, xp, cfg)

@@ -86,9 +86,10 @@ def jax_results(problem):
 def _torch_args(problem, function, scaler, sampler):
     data, rel0, cur = problem
     one = lambda tree: jax.tree_util.tree_map(lambda x: np.asarray(x)[None], tree)  # noqa: E731
-    tcur = interop.frame_from_numpy(one(cur))
+    tcur = interop.frame_from_numpy(one(cur), device="cpu")
     cfg = interop.alignment_config_from_fields(dataclasses.asdict(_cfg(function, scaler, sampler)))
-    return (interop.level_data_from_numpy(one(data)), interop.se3_from_numpy(one(rel0)),
+    return (interop.level_data_from_numpy(one(data), device="cpu"),
+            interop.se3_from_numpy(one(rel0), device="cpu"),
             tcur.intensity[0], tcur.cameras[0], cfg, None)
 
 

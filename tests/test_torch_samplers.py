@@ -164,7 +164,7 @@ def _solver_plots():
 def test_rgbd_aligner_matches_jax(stacked, name):
     frames, poses, pred = stacked
     cfg = CONFIGS[name]
-    t_frames = [interop.frame_from_numpy(_np_tree(f)) for f in frames]
+    t_frames = [interop.frame_from_numpy(_np_tree(f), device="cpu") for f in frames]
     with _solver_plots() as plots:
         pose_j, _, ok_j = JRgbdAligner(cfg).align(frames[:2], poses[:2], frames[2], pred)
         pose_t, cov_t, ok_t = TRgbdAligner(interop.alignment_config_from_fields(
@@ -204,8 +204,9 @@ def test_align_pairs_matches_jax(pairs, name):
     rel0 = JSE3(jnp.broadcast_to(jnp.eye(3, dtype=jnp.float32), (B, 3, 3)), jnp.zeros((B, 3), jnp.float32))
     rel_j, cov_j, valid_j = _np_tree(j_align_pairs(ref, cur, rel0, None, cfg))
     rel_t, cov_t, valid_t = t_align_pairs(
-        interop.frame_from_numpy(_np_tree(ref)), interop.frame_from_numpy(_np_tree(cur)),
-        interop.se3_from_numpy(_np_tree(rel0)), None,
+        interop.frame_from_numpy(_np_tree(ref), device="cpu"),
+        interop.frame_from_numpy(_np_tree(cur), device="cpu"),
+        interop.se3_from_numpy(_np_tree(rel0), device="cpu"), None,
         interop.alignment_config_from_fields(dataclasses.asdict(cfg)),
     )
     np.testing.assert_array_equal(valid_t.numpy(), valid_j)

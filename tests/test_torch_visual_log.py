@@ -66,8 +66,9 @@ def test_x_history_matches_jax_encode_x():
     rel0 = JSE3(jnp.eye(3, dtype=jnp.float32)[None], jnp.zeros((1, 3), jnp.float32))
     _, res_j = jic.solve_level(data, rel0, f1.intensity[0], cam, cfg, None, record_iterations=True)
     one = lambda tree: jax.tree_util.tree_map(lambda x: np.asarray(x)[None], tree)  # noqa: E731
-    cur = interop.frame_from_numpy(one(f1))
-    _, res_t = tic.solve_level(interop.level_data_from_numpy(one(data)), interop.se3_from_numpy(one(rel0)),
+    cur = interop.frame_from_numpy(one(f1), device="cpu")
+    _, res_t = tic.solve_level(interop.level_data_from_numpy(one(data), device="cpu"),
+                               interop.se3_from_numpy(one(rel0), device="cpu"),
                                cur.intensity[0], cur.cameras[0],
                                interop.alignment_config_from_fields(dataclasses.asdict(cfg)), None,
                                record_iterations=True)
@@ -117,7 +118,7 @@ def test_visual_log_matches_jax(tmp_path, name):
     frames = [j_create_frame(jnp.asarray(i), jnp.asarray(d), cam, n_levels=2)
               for i, d in (synthetic.render(K, p, (H, W)) for p in
                            (np.eye(4), lie_np.exp(np.array([0.05, 0, 0, 0, 0.02, 0]))))]
-    t_frames = [interop.frame_from_numpy(_np_tree(f)) for f in frames]
+    t_frames = [interop.frame_from_numpy(_np_tree(f), device="cpu") for f in frames]
     cfg = CONFIGS[name]
     with _sinks_on(tmp_path) as got:
         _, _, ok_j = JRgbdAligner(cfg).align(frames[:1], [np.eye(4)], frames[1], np.eye(4))

@@ -11,6 +11,11 @@ The libraries land in `build/vslam_tpu_torch/` at the repository root,
 named by a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is loaded as is. No source includes PyTorch's headers:
 the build takes seconds, not minutes.
+
+`Variants` builds a source with some of its design constants (a
+`constexpr int` such as fused_solve.cu's kCtas) set to other values, so a
+measurement can hold the alternatives against each other on the card; the
+package itself only ever loads the sources as they are.
 """
 
 from __future__ import annotations
@@ -19,12 +24,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import types
 from pathlib import Path
 
-__all__ = ["build", "library", "NVCC_FLAGS"]
+__all__ = ["build", "library", "Variants", "NVCC_FLAGS"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "vslam_tpu_torch"
@@ -41,11 +47,15 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # include_prior, prior_weight, max_iterations, min_step_size, min_gradient,
 # min_reduction, min_relative_reduction, use_min_rel, orthonormalize, out,
 # chi2_hist, step_hist, stream); the robust entry adds loss_kind,
-# scaler_kind, huber_c, tdist_v, r_buf, vis_buf before out
+# scaler_kind, huber_c, tdist_v before out
 _COMMON = [_VP] * 10 + [_I] * 8 + [_F, _I] + [_F] * 4 + [_I, _I]
 _SIGNATURES = {
     "vslam_solve_level_fused": _COMMON + [_VP] * 4,
-    "vslam_solve_level_fused_robust": _COMMON + [_I, _I, _F, _F] + [_VP] * 6,
+    "vslam_solve_level_fused_robust": _COMMON + [_I, _I, _F, _F] + [_VP] * 4,
+    # (F, P, robust, need, limit)
+    "vslam_solve_level_smem": [_I] * 3 + [_VP] * 2,
+    # (B, F, P, robust, image_is_bf16, bilinear, clusters)
+    "vslam_solve_level_clusters": [_I] * 6 + [_VP],
     # (pcl, mask, rel_R, rel_t, cam, image, image_is_bf16, B, F, P, H, W,
     # bilinear, iwxp, visible, stream)
     "vslam_fused_level_sample": [_VP] * 6 + [_I] * 7 + [_VP] * 3,
@@ -108,16 +118,66 @@ def build(verbose: bool = False):
     return libs, "".join(log)
 
 
+def _entries(paths) -> types.SimpleNamespace:
+    """The C entries found in the libraries at ``paths``, argtypes declared,
+    as attributes named like the entries."""
+    libs = [ctypes.CDLL(str(p)) for p in paths]
+    entries = {}
+    for name, argtypes in _SIGNATURES.items():
+        for lib in libs:
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                entries[name] = fn
+                break
+    return types.SimpleNamespace(**entries)
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> types.SimpleNamespace:
     """The C entries of the kernel libraries (built on first call), argtypes
     declared, as attributes named like the entries."""
     paths, _ = build()
-    libs = [ctypes.CDLL(str(p)) for p in paths]
-    entries = {}
-    for name, argtypes in _SIGNATURES.items():
-        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        entries[name] = fn
-    return types.SimpleNamespace(**entries)
+    entries = _entries(paths)
+    missing = set(_SIGNATURES) - set(vars(entries))
+    if missing:
+        raise RuntimeError(f"kernel libraries lack {sorted(missing)}")
+    return entries
+
+
+class Variants:
+    """Libraries of single sources with design constants replaced: each
+    spec is (source stem, {constexpr name: value}). The nvcc processes start
+    at construction, all together; `load()` waits for them and returns one
+    entry namespace per spec."""
+
+    def __init__(self, specs):
+        nvcc = _nvcc()
+        out_dir = BUILD_DIR / "variants"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        self._jobs = []
+        for stem, constants in specs:
+            text = (SRC_DIR / f"{stem}.cu").read_text()
+            for name, value in constants.items():
+                text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {int(value)};", text)
+                if n != 1:
+                    raise ValueError(f"{stem}.cu has no single 'constexpr int {name} = ...;'")
+            tag = "_".join(f"{k}{v}" for k, v in constants.items())
+            src = out_dir / f"{stem}_{tag}.cu"
+            src.write_text(text)
+            lib = out_dir / f"libvslam_{stem}_{tag}_{os.getpid()}.so"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(lib), str(src)]
+            self._jobs.append((lib, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                          stderr=subprocess.STDOUT, text=True)))
+
+    def load(self):
+        failed, paths = [], []
+        for lib, cmd, proc in self._jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+            paths.append(lib)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return [_entries([p]) for p in paths]

@@ -59,7 +59,7 @@ def fused_level_sample_plain(data, rel: SE3, image: torch.Tensor, cam: Camera, i
 
 def fused_level_ne_plain(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation="bilinear"):
     """The plain version of `fused_level_ne`, on any device."""
-    sums = _frame_sums(data, rel, image, cam, interpolation == "bilinear", _QUADRATIC)
+    sums = _frame_sums(data, rel, image, cam, interpolation == "bilinear", _QUADRATIC, 1)
     return _gram_matrix(sums), sums[..., 21:27], sums[..., 27], sums[..., 28]
 
 

@@ -3,13 +3,15 @@
 Port of `vslam_tpu.alignment.fused_solve.solve_level_fused`, both entries of
 the Pallas kernel: quadratic (`_solve_kernel`) and robust
 (`_solve_kernel_robust`), over `_solve_impl`. One launch solves one pyramid
-level for all B pairs: one thread block per pair runs that pair's whole GN
-loop (warp, project, sample, JᵀWJ / JᵀWr / chi2, normalization, prior, 6x6
-Cholesky, guards, compositional update, history) and exits at its own
-convergence. With a robust loss each iteration first caches r and the
-visibility in a (B, F, P) scratch, computes the residual scale from the
-cache (median / MAD by value bisection, mean, or the t-distribution fixed
-point) and then runs the weighted Gram pass. The kernel is
+level for all B pairs: one cluster of `CTAS` thread blocks per pair runs
+that pair's whole GN loop (warp, project, sample, JᵀWJ / JᵀWr / chi2,
+normalization, prior, 6x6 Cholesky, guards, compositional update, history)
+and exits at its own convergence; each block takes a fixed contiguous share
+of every frame's points. With a robust loss each iteration first caches r
+and the visibility in shared memory, computes the residual scale from the
+cache (median / MAD by an exact radix select of the two central ranks and a
+replay of the reference's value bisection, mean, or the t-distribution
+fixed point) and then runs the weighted Gram pass. The kernel is
 `csrc/fused_solve.cu`.
 
 Two functions with one signature:
@@ -73,6 +75,10 @@ _OUT = 64
 
 # threads per block in csrc/fused_solve.cu (kThreads): fixes the sum order
 _THREADS = 256
+# thread blocks per pair in csrc/fused_solve.cu (kCtas, one cluster), and
+# the granule of a block's share of a frame's points (kShareAlign)
+CTAS = 4
+_SHARE_ALIGN = 16
 _WARP = 32
 # upper triangle of the 6x6 Gram block, row-major (warp_sample.cuh kGram)
 _TRIU = [(a, c) for a in range(6) for c in range(a, 6)]
@@ -152,10 +158,22 @@ def _compose(a: SE3, b: SE3) -> SE3:
     return SE3(_mat3_mul(a.R, b.R), _mat3_vec(a.R, b.t) + a.t)
 
 
-def _block_sum(c: torch.Tensor) -> torch.Tensor:
-    """Sum per-point values (..., P, K) over P in the kernel's order: thread
-    t adds points t, t + 256, ... in turn; a shuffle-down tree sums each
-    warp's 32 lanes; the 8 warp sums are added in sequence."""
+def _block_sum(c: torch.Tensor, ctas: int = 1) -> torch.Tensor:
+    """Sum per-point values (..., P, K) over P in the kernel's order. One
+    block: thread t adds points t, t + 256, ... in turn; a shuffle-down tree
+    sums each warp's 32 lanes; the 8 warp sums are added in sequence. With
+    ``ctas`` blocks (the whole-level kernel's cluster), block c sums its
+    share [c S, (c + 1) S) of the points, S = 16 ceil(P / 16 ctas), in that
+    order, and the blocks' sums are added in rank order."""
+    if ctas > 1:
+        P = c.shape[-2]
+        S = -(-P // (_SHARE_ALIGN * ctas)) * _SHARE_ALIGN
+        c = torch.nn.functional.pad(c, (0, 0, 0, ctas * S - P))
+        parts = _block_sum(c.reshape(*c.shape[:-2], ctas, S, c.shape[-1]))
+        total = parts[..., 0, :]
+        for i in range(1, ctas):
+            total = total + parts[..., i, :]
+        return total
     P = c.shape[-2]
     n = -(-P // _THREADS)
     c = torch.nn.functional.pad(c, (0, 0, 0, n * _THREADS - P))
@@ -237,9 +255,9 @@ def _gram_matrix(sums: torch.Tensor) -> torch.Tensor:
     return sums[..., torch.tensor(_TRIU_INDEX, device=sums.device)]
 
 
-def _sum(x: torch.Tensor) -> torch.Tensor:
+def _sum(x: torch.Tensor, ctas: int) -> torch.Tensor:
     """Sum over the last axis in the kernel's order."""
-    return _block_sum(x[..., None])[..., 0]
+    return _block_sum(x[..., None], ctas)[..., 0]
 
 
 def _const(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -255,7 +273,10 @@ def _bisect_median(v: torch.Tensor, m: torch.Tensor, n: torch.Tensor) -> torch.T
     entries, each by 24 halvings of the [min, max] bracket (the k-th value
     is the smallest x with count(m & v <= x) >= k + 1), averaged; 0 when
     n = 0 (fused_solve.py:259-297 of the JAX package). Counts are exact, so
-    the order of the count does not matter."""
+    the order of the count does not matter. The kernel selects the two
+    ranks exactly and replays these 24 steps against them, which gives the
+    same bits (tests/test_torch_select.py holds the two methods
+    together)."""
     inf = torch.full_like(v, float("inf"))
     mn = torch.where(m, v, inf).amin(-1)
     mx = torch.where(m, v, -inf).amax(-1)
@@ -273,7 +294,7 @@ def _bisect_median(v: torch.Tensor, m: torch.Tensor, n: torch.Tensor) -> torch.T
     return torch.where(n > 0, med, torch.zeros_like(med))
 
 
-def _tdist_sigma(r: torch.Tensor, m: torch.Tensor, n: torch.Tensor, v: float) -> torch.Tensor:
+def _tdist_sigma(r: torch.Tensor, m: torch.Tensor, n: torch.Tensor, v: float, ctas: int) -> torch.Tensor:
     """The t-distribution fixed point sigma^2 <- sum r^2 (v+1) / (v + r^2 /
     sigma^2) / max(n, 1) per (B, F), from sigma = 1, at most 30 steps, each
     frame stopping at its own step <= 1e-5; at least 1e-12."""
@@ -285,7 +306,7 @@ def _tdist_sigma(r: torch.Tensor, m: torch.Tensor, n: torch.Tensor, v: float) ->
     active = torch.ones_like(n, dtype=torch.bool)
     for _ in range(_TDIST_ITERATIONS):
         sigma2 = torch.clamp(sigma * sigma, min=1e-24)
-        acc = _sum(r2 * vp1 / (vt + r2 / sigma2[..., None]))
+        acc = _sum(r2 * vp1 / (vt + r2 / sigma2[..., None]), ctas)
         sigma_new = torch.sqrt(acc / n_safe)
         step = torch.abs(sigma - sigma_new)
         sigma = torch.where(active, sigma_new, sigma)
@@ -295,16 +316,16 @@ def _tdist_sigma(r: torch.Tensor, m: torch.Tensor, n: torch.Tensor, v: float) ->
     return torch.clamp(sigma, min=1e-12)
 
 
-def _robust_scale(r: torch.Tensor, m: torch.Tensor, n: torch.Tensor, loss_cfg):
+def _robust_scale(r: torch.Tensor, m: torch.Tensor, n: torch.Tensor, loss_cfg, ctas: int):
     """(offset, sigma) (B, F) of the cached residuals r (zero where
     invisible) over the interest mask m, by the kernel's methods."""
     zero = torch.zeros_like(r)
     if loss_cfg.function == "tdistribution":
-        sigma = _tdist_sigma(r, m, n, loss_cfg.tdistribution_v)
+        sigma = _tdist_sigma(r, m, n, loss_cfg.tdistribution_v, ctas)
         return torch.zeros_like(sigma), sigma
     if loss_cfg.scaler == "mean":
-        mean = _sum(torch.where(m, r, zero)) / torch.clamp(n, min=1.0)
-        dev = _sum(torch.where(m, torch.abs(r - mean[..., None]), zero))
+        mean = _sum(torch.where(m, r, zero), ctas) / torch.clamp(n, min=1.0)
+        dev = _sum(torch.where(m, torch.abs(r - mean[..., None]), zero), ctas)
         std = torch.sqrt(dev / torch.clamp(n - 1.0, min=1.0))
         empty = n < 1.0
         return (torch.where(empty, torch.zeros_like(mean), mean),
@@ -313,7 +334,7 @@ def _robust_scale(r: torch.Tensor, m: torch.Tensor, n: torch.Tensor, loss_cfg):
     if loss_cfg.scaler == "mad":
         sigma = 1.4826 * _bisect_median(torch.abs(r - med[..., None]), m, n)
         return med, torch.where(sigma > 1e-6, sigma, torch.ones_like(sigma))
-    dev = _sum(torch.where(m, torch.abs(r - med[..., None]), zero))
+    dev = _sum(torch.where(m, torch.abs(r - med[..., None]), zero), ctas)
     std = torch.sqrt(dev / torch.clamp(n - 1.0, min=1.0))
     return med, torch.where(std > 0, std, torch.ones_like(std))
 
@@ -334,7 +355,8 @@ def _robust_weight(r_std: torch.Tensor, loss_cfg) -> torch.Tensor:
     return (vt + 1.0) / (vt + r_std * r_std)
 
 
-def _frame_sums(data, rel: SE3, img: torch.Tensor, cam: Camera, bilinear: bool, loss_cfg) -> torch.Tensor:
+def _frame_sums(data, rel: SE3, img: torch.Tensor, cam: Camera, bilinear: bool, loss_cfg,
+                ctas: int) -> torch.Tensor:
     """Per-frame raw Gram sums (B, F, 29) at rel (B, F) over the visible
     points: upper JᵀWJ (21), JᵀWr (6), Σ w r², visible count. W is 1
     (quadratic loss) or the robust weight of the scale computed from this
@@ -347,21 +369,21 @@ def _frame_sums(data, rel: SE3, img: torch.Tensor, cam: Camera, bilinear: bool, 
         terms += [J[..., a] * r for a in range(6)] + [r * r]
     else:
         r = torch.where(visible, r, torch.zeros_like(r))  # the kernel's residual cache
-        offset, sigma = _robust_scale(r, data.mask, data.n_constraints, loss_cfg)
+        offset, sigma = _robust_scale(r, data.mask, data.n_constraints, loss_cfg, ctas)
         w = _robust_weight((r - offset[..., None]) / sigma[..., None], loss_cfg)
         wj = J * w[..., None]
         terms = [wj[..., a] * J[..., c] for a, c in _TRIU]
         terms += [wj[..., a] * r for a in range(6)] + [w * r * r]
     per_point = torch.stack(terms + [torch.ones_like(r)], dim=-1)
     per_point = torch.where(visible[..., None], per_point, torch.zeros_like(per_point))
-    return _block_sum(per_point)
+    return _block_sum(per_point, ctas)
 
 
-def _fused_ne(data, rel: SE3, img, cam, cfg, include_prior, x_pred) -> NormalEquations:
+def _fused_ne(data, rel: SE3, img, cam, cfg, include_prior, x_pred, ctas) -> NormalEquations:
     """Stacked normalized NE: per frame, divide by the interest-point count
     (1 when n <= 1), then add the prior (x 1/255^2, + w I, b += w (x - x_pred)
     with the series log of the frame's pose); sum over the frames."""
-    sums = _frame_sums(data, rel, img, cam, cfg.interpolation == "bilinear", cfg.loss)
+    sums = _frame_sums(data, rel, img, cam, cfg.interpolation == "bilinear", cfg.loss, ctas)
     n = data.n_constraints
     inv_n = torch.where(n > 1, 1.0 / torch.clamp(n, min=1.0), torch.ones_like(n))
     A = _gram_matrix(sums) * inv_n[..., None, None]
@@ -390,14 +412,15 @@ def _result(rel0: SE3, Rd, td, A, b, chi2, iterations, chist, shist):
     return se3.compose(rel0, _broadcast(delta, rel0)), result
 
 
-def solve_level_fused_plain(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_pred):
+def solve_level_fused_plain(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_pred, *, ctas: int = CTAS):
     """Batched PyTorch re-enactment of the whole-level kernel, on any device.
 
     Same arguments and results as `solve_level_fused`: data leaves
     (B, F, ...), rel0 (B, F), image_cur (B, H, W), cam_cur leaves (B,),
     x_pred (B, F, 6) or None. Returns (rel0 . delta (B, F), SolverResult).
     History rows hold chi2 and step of every evaluated iteration; A, b and
-    chi2 are those of the last accepted one (identity, zero, +inf before)."""
+    chi2 are those of the last accepted one (identity, zero, +inf before).
+    ``ctas`` is the kernel's blocks per pair, which fixes its sum order."""
     B, F, _ = data.templ.shape
     dev = data.templ.device
     img = _prepare_image(image_cur, cfg)
@@ -421,7 +444,7 @@ def solve_level_fused_plain(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_
         live = ~done
         delta = SE3(Rd[:, None].expand(-1, F, -1, -1), td[:, None].expand(-1, F, -1))
         rel = _compose(rel0, delta)
-        ne = _fused_ne(data, rel, img, cam_cur, cfg, include_prior, x_pred)
+        ne = _fused_ne(data, rel, img, cam_cur, cfg, include_prior, x_pred, ctas)
         dx, logdet = cholesky_logdet_solve(ne.A, ne.b)
         step, accepted, stop = gn_decision(ne, dx, logdet, chi2_prev, pushed, s)
 
@@ -461,10 +484,12 @@ def _checked(name: str, x: torch.Tensor, shape, dtype) -> torch.Tensor:
     return x
 
 
-def _launch(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_pred):
+def _launch(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_pred, lib=None):
     """Validate, allocate with torch.empty and launch on the current stream:
-    the quadratic entry for loss "None", else the robust entry with its
-    (B, F, P) residual and visibility scratch."""
+    the quadratic entry for loss "None", else the robust entry, which raises
+    where a block's share of a frame does not fit its residual cache in
+    shared memory. ``lib`` is the kernel library (default: the package's
+    build)."""
     global LAUNCHES, ROBUST_LAUNCHES
     from .._build import library
 
@@ -515,20 +540,25 @@ def _launch(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_pred):
     ]
     robust = cfg.loss.function != "None"
     if robust:
-        r_buf = torch.empty(B, F, P, dtype=f32, device=dev)
-        vis_buf = torch.empty(B, F, P, dtype=f32, device=dev)
         scalars += [
             ctypes.c_int(_LOSS_KIND[cfg.loss.function]),
             ctypes.c_int(_SCALER_KIND[cfg.loss.scaler]),
             ctypes.c_float(cfg.loss.huber_c),
             ctypes.c_float(cfg.loss.tdistribution_v),
-            r_buf, vis_buf,
         ]
     ptrs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a
             for a in args + scalars + [out, chist, shist]]
+    lib = library() if lib is None else lib
     with torch.cuda.device(dev):
+        need, limit = ctypes.c_int(0), ctypes.c_int(0)
+        err = lib.vslam_solve_level_smem(F, P, int(robust), ctypes.byref(need), ctypes.byref(limit))
+        if err != 0:
+            raise RuntimeError(f"fused_solve kernel: shared-memory query failed: CUDA error {err}")
+        if need.value > limit.value:
+            raise ValueError(f"fused_solve kernel: F={F} frames of P={P} points need {need.value} B of "
+                             f"shared memory per block, above the card's {limit.value} B")
         stream = torch.cuda.current_stream(dev).cuda_stream
-        entry = library().vslam_solve_level_fused_robust if robust else library().vslam_solve_level_fused
+        entry = lib.vslam_solve_level_fused_robust if robust else lib.vslam_solve_level_fused
         err = entry(*ptrs, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused_solve kernel launch failed: CUDA error {err}")
@@ -543,7 +573,11 @@ def solve_level_fused(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_pred):
     `solve_level_fused_plain`."""
     if data.templ.device.type == "cpu":
         return solve_level_fused_plain(data, rel0, image_cur, cam_cur, cfg, x_pred)
-    out, chist, shist = _launch(data, rel0, image_cur, cam_cur, cfg, x_pred)
+    return _from_out(rel0, *_launch(data, rel0, image_cur, cam_cur, cfg, x_pred))
+
+
+def _from_out(rel0: SE3, out, chist, shist):
+    """(rel0 . delta, SolverResult) from the kernel's output rows."""
     B = out.shape[0]
     return _result(
         rel0,

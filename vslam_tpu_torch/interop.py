@@ -4,8 +4,9 @@ The port has no weights; what crosses over is state: frame pyramids,
 per-level interest-point data, cameras, poses and the alignment config.
 These functions take the numpy leaves of a `vslam_tpu` pytree (the caller
 runs `np.asarray` on the JAX side; this module never sees JAX) and build the
-port's types on a given device. Containers are read by field name, so any
-object with the JAX NamedTuple's fields works.
+port's types on the device named, CUDA when none is (`core.device.resolve`).
+Containers are read by field name, so any object with the JAX NamedTuple's
+fields works.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from .alignment.ic import AlignmentConfig, ICLevelData
 from .core.camera import Camera
+from .core.device import resolve
 from .core.frame import Frame
 from .core.se3 import SE3
 from .kalman.ekf_se3 import EkfState
@@ -35,18 +37,18 @@ __all__ = [
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(x, copy=True), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(x, copy=True), dtype=dtype, device=resolve(device))
 
 
-def camera_from_numpy(cam, device="cpu") -> Camera:
+def camera_from_numpy(cam, device=None) -> Camera:
     return Camera(*(_t(getattr(cam, k), device, torch.float32) for k in Camera._fields))
 
 
-def se3_from_numpy(g, device="cpu") -> SE3:
+def se3_from_numpy(g, device=None) -> SE3:
     return SE3(_t(g.R, device, torch.float32), _t(g.t, device, torch.float32))
 
 
-def frame_from_numpy(frame, device="cpu") -> Frame:
+def frame_from_numpy(frame, device=None) -> Frame:
     def levels(name):
         return tuple(_t(x, device, torch.float32) for x in getattr(frame, name))
 
@@ -60,7 +62,7 @@ def frame_from_numpy(frame, device="cpu") -> Frame:
     )
 
 
-def level_data_from_numpy(data, device="cpu") -> ICLevelData:
+def level_data_from_numpy(data, device=None) -> ICLevelData:
     return ICLevelData(
         pcl=_t(data.pcl, device, torch.float32),
         J=_t(data.J, device, torch.float32),
@@ -70,12 +72,12 @@ def level_data_from_numpy(data, device="cpu") -> ICLevelData:
     )
 
 
-def level_data_tuple_from_numpy(levels, device="cpu"):
+def level_data_tuple_from_numpy(levels, device=None):
     """A per-level tuple of ICLevelData (`precompute_frame`'s result)."""
     return tuple(level_data_from_numpy(d, device) for d in levels)
 
 
-def ekf_state_from_numpy(ekf, device="cpu") -> EkfState:
+def ekf_state_from_numpy(ekf, device=None) -> EkfState:
     return EkfState(
         pose=se3_from_numpy(ekf.pose, device),
         velocity=_t(ekf.velocity, device, torch.float32),
