@@ -6,9 +6,9 @@ Phases, each ending in torch.cuda.synchronize():
   1. device   — requires CUDA (no CPU fallback); prints the card's name and
                 power limit as nvidia-smi reports them
   2. build    — nvcc-builds the kernels from vslam_tpu_torch/csrc, and
-                beside them the sweep's variants of the whole-level kernel
-                (each CTA count of CTAS_TRIED), one nvcc each, all started
-                together
+                beside them the sweeps' variants (the whole-level kernel at
+                each CTA count of CTAS_TRIED, and RESIDUAL_SWEEPS), one nvcc
+                each, all started together
   3. kernel   — the whole-level GN kernel's quadratic entry against its plain
                 PyTorch version on the same tensors: 64 rendered 480x640
                 pairs, finest level, four cases (F=1 nearest bf16, F=1
@@ -57,7 +57,9 @@ Phases, each ending in torch.cuda.synchronize():
                 within 2e-2 of the recorded one
  12. times    — each new kernel's device ms (profiler) beside its plain
                 version's and its bound at phase 10's level inputs, with
-                grid_sample beside the mxu kernel; align_pairs ms with
+                the launch floor (a one-element zero_()'s device time, in
+                the same profiler window; not a bound) beside every kernel
+                and grid_sample beside the mxu kernel; align_pairs ms with
                 "fused", "mxu" and "fused_gn"; RgbdAligner ms, sinks on and off
  13. split    — where an iteration of the whole-level kernel goes, both
                 entries, at their level-0 main-path inputs (align_pairs
@@ -74,6 +76,15 @@ Phases, each ending in torch.cuda.synchronize():
  15. mxu      — the mxu kernel against grid_sample at phase 10's level
                 inputs in alternation (kernel, grid_sample, grid_sample,
                 kernel; MXU_ROUNDS rounds) with the spread of each
+ 16. residual sweep — the NE kernel at each CTA count of NE_CTAS_TRIED
+                (at every frame size) and each count of points in flight of
+                NE_IN_FLIGHT_TRIED, beside the package's build (its cluster
+                above kNeClusterPoints points), and the sampler at each
+                count of points per thread of SAMPLE_PTS_TRIED, at phase
+                10's inputs of every level: each bit for bit against its
+                plain version (the NE's summing in that count's order),
+                device ms per level, best of two runs in turns; the
+                source's constants are the chosen ones
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for its work (`_bound`); the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script
@@ -1222,10 +1233,12 @@ def _visual_log(poses, stream, camera, log):
 
 def _time_samplers(kernels, captured, card, log):
     """Phase 12, kernels: at phase 10's inputs of each level, each new
-    kernel's device ms (profiler, 20 launches) beside its plain version's
-    (events, best of two runs of 3 calls around the kernel's) and the
-    bound of its work; grid_sample beside the mxu kernel (device ms by the
-    profiler). Returns {kernel: entry fields of the kernels line}."""
+    kernel's device ms (profiler, 20 launches) beside the launch floor (a
+    one-element zero_(), the smallest PyTorch kernel, 20 launches in the
+    same window), its plain version's (events, best of two runs of 3 calls
+    around the kernel's) and the bound of its work; grid_sample beside the
+    mxu kernel (device ms by the profiler). Returns {kernel: entry fields of
+    the kernels line}."""
     import torch
 
     out = {}
@@ -1238,7 +1251,8 @@ def _time_samplers(kernels, captured, card, log):
             run_p = lambda: k.plain(*args)  # noqa: E731
             run_p()
             p1 = _events_ms(run_p, 3)
-            k_ms, seen = _kernel_device_ms(run_k, 20, k.cuda_name)
+            one = torch.zeros(1, device=args[k.image_arg].device)
+            k_ms, floor_ms = _device_ms_batch([(run_k, 20, k.cuda_name), (one.zero_, 20, None)])
             p2 = _events_ms(run_p, 3)
             ms, plain = ms + k_ms, plain + min(p1, p2)
             extra = ""
@@ -1256,7 +1270,8 @@ def _time_samplers(kernels, captured, card, log):
             bound_l, by_l = _bound(o, b)
             log(f"phase 12 {name} at the {args[k.image_arg].shape[-2]}x{width} level "
                 f"({tuple(args[k.image_arg].shape)} image): kernel {k_ms:.4f} ms on the device (profiler, "
-                f"{seen} of 20 records), plain {min(p1, p2):.3f} ms (events, runs {p1:.3f}, {p2:.3f}){extra}; "
+                f"20 launches), launch floor {floor_ms * 1e3:.3f} us (a one-element zero_() in the same "
+                f"window; not a bound), plain {min(p1, p2):.3f} ms (events, runs {p1:.3f}, {p2:.3f}){extra}; "
                 f"bound {bound_l * 1e3:.3f} us ({by_l}: {o:.3e} operations, {b:.3e} bytes) {card}")
         bound_ms, by = _bound(ops, nbytes)
         out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
@@ -1298,8 +1313,18 @@ def _time_paths(frames, cfgs, align_vlog, card, log):
 
 
 CTAS_TRIED = (1, 2, 4, 8)
-# design constants of fused_solve.cu set in the sweep, one dict per build
-SOLVE_SWEEP = tuple({"kCtas": c} for c in CTAS_TRIED)
+NE_CTAS_TRIED = (1, 2, 4, 8)
+NE_IN_FLIGHT_TRIED = (1, 2, 4)
+SAMPLE_PTS_TRIED = (1, 2, 4)
+# phase 16's builds of fused_ne.cu, the design constants each sets, per
+# kernel: the NE kernel's CTA counts at every frame size (kNeClusterPoints
+# 0), the package's own build ({}), its points in flight; the sampler's
+# points per thread
+RESIDUAL_SWEEPS = {
+    "fused_level_ne": [{"kNeCtas": c, "kNeClusterPoints": 0} for c in NE_CTAS_TRIED] + [{}]
+                      + [{"kNeInFlight": f} for f in NE_IN_FLIGHT_TRIED],
+    "fused_level_sample": [{"kSamplePts": p} for p in SAMPLE_PTS_TRIED],
+}
 MXU_ROUNDS = 5
 
 
@@ -1309,23 +1334,26 @@ def _source_constant(source: str, name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", (_build.SRC_DIR / source).read_text())[1])
 
 
-def _solve_key(constants: dict):
-    return ("solve", tuple(sorted(constants.items())))
+def _variant_key(stem: str, constants: dict):
+    return stem, tuple(sorted(constants.items()))
 
 
 def _start_variants():
-    """Start the nvcc of the whole-level kernel's variants the sweep
-    measures (one process each, all together): each dict of design
-    constants of SOLVE_SWEEP but the source's own. Returns
-    (`_build.Variants`, their keys)."""
+    """Start the nvcc of the variants the sweeps measure (one process each,
+    all together): the whole-level kernel at each CTA count of CTAS_TRIED
+    and each build of RESIDUAL_SWEEPS, but those whose constants are all
+    the source's own. Returns (`_build.Variants`, their keys)."""
     from vslam_tpu_torch import _build
 
-    keys, specs = [], []
-    for v in SOLVE_SWEEP:
-        if any(_source_constant("fused_solve.cu", k) != x for k, x in v.items()):
-            keys.append(_solve_key(v))
-            specs.append(("fused_solve", dict(v)))
-    return _build.Variants(specs), keys
+    specs = [("fused_solve", {"kCtas": c}) for c in CTAS_TRIED]
+    specs += [("fused_ne", v) for variants in RESIDUAL_SWEEPS.values() for v in variants]
+    keys, todo = [], []
+    for stem, constants in specs:
+        key = _variant_key(stem, constants)
+        if key not in keys and any(_source_constant(f"{stem}.cu", k) != x for k, x in constants.items()):
+            keys.append(key)
+            todo.append((stem, constants))
+    return _build.Variants(todo), keys
 
 
 def _max_clusters(args, lib=None) -> str:
@@ -1354,22 +1382,21 @@ def _solve_result_diff(got, want) -> float:
 
 
 def _solve_sweep(inputs, libs, card, log):
-    """The whole-level kernel built with each dict of design constants of
-    SOLVE_SWEEP (the package's own build where they are the source's),
-    at every level's main-path inputs of each path of ``inputs`` ({label:
+    """The whole-level kernel built with each CTA count of CTAS_TRIED (the
+    package's own build where it is the source's), at every level's
+    main-path inputs of each path of ``inputs`` ({label:
     per-level arguments}: `align_pairs` at B = 64, the odometry and the
     robust profile at B = 1): each held bit for bit against the plain
     version summing in its CTA count's order, then timed (device ms,
     profiler, 20 launches) beside its evaluated iterations (the most over
-    the pairs), which the sum order can move. Returns {(constants, label):
+    the pairs), which the sum order can move. Returns {(CTA count, label):
     ms over the 3 levels}."""
     from vslam_tpu_torch.alignment import fused_solve
 
     times = {}
-    for v in SOLVE_SWEEP:
-        lib = libs.get(_solve_key(v))
-        c = v.get("kCtas", _source_constant("fused_solve.cu", "kCtas"))
-        name = " ".join(f"{k}={x}" for k, x in v.items())
+    for c in CTAS_TRIED:
+        lib = libs.get(_variant_key("fused_solve", {"kCtas": c}))
+        name = f"kCtas={c}"
         groups, evals = [], []
         for label in inputs:
             for args in inputs[label]:
@@ -1384,15 +1411,57 @@ def _solve_sweep(inputs, libs, card, log):
         for i, label in enumerate(inputs):
             levels = list(zip(ms[3 * i:3 * i + 3], evals[3 * i:3 * i + 3], inputs[label]))
             total = sum(m for m, _, _ in levels)
-            times[(tuple(v.items()), label)] = total
+            times[(c, label)] = total
             log(f"sweep {label} {name}: {total:.4f} ms over 3 levels (" + " / ".join(
                 f"{m:.4f} ms {e} it, {_max_clusters(a, lib)} clusters at once" for m, e, a in levels)
                 + f"), bit-equal with the plain version at ctas={c} {card}")
     for label in inputs:
-        log(f"sweep {label}: " + ", ".join(
-            f"{' '.join(f'{k}={x}' for k, x in v.items())} {times[(tuple(v.items()), label)]:.4f} ms"
-            for v in SOLVE_SWEEP) + f"; the source's kCtas = {_source_constant('fused_solve.cu', 'kCtas')} {card}")
+        log(f"sweep {label}: " + ", ".join(f"kCtas={c} {times[(c, label)]:.4f} ms" for c in CTAS_TRIED)
+            + f"; the source's kCtas = {_source_constant('fused_solve.cu', 'kCtas')} {card}")
     return times
+
+
+def _residual_sweep(captured, libs, card, log):
+    """Phase 16: each build of RESIDUAL_SWEEPS (the package's own where its
+    constants are the source's) at phase 10's inputs of every level
+    (``captured``, {kernel: {width: args}}): each held bit for bit against
+    its plain version (the NE's summing over the build's CTA count, or by
+    `ne_ctas`), then timed (device ms, profiler, 20 launches) in two runs in
+    turns (the builds in order, then reversed) in one window per kernel;
+    the best of the two, and the fastest build at each level."""
+    from vslam_tpu_torch.alignment import fused_ne
+
+    kernels = _new_kernels()
+    out = {}
+    for kernel, variants in RESIDUAL_SWEEPS.items():
+        ne = kernel == "fused_level_ne"
+        launch = fused_ne._launch_ne if ne else fused_ne._launch_sample
+        levels = [args for _, args in sorted(captured[kernel].items(), reverse=True)]
+        runs = {}
+        for vi, v in enumerate(variants):
+            lib = libs.get(_variant_key("fused_ne", v))
+            for li, args in enumerate(levels):
+                runs[vi, li] = (lambda a, lib: lambda: launch(*a, lib=lib))(args, lib)
+                want = (fused_ne.fused_level_ne_plain(*args, ctas=v.get("kNeCtas")) if ne
+                        else fused_ne.fused_level_sample_plain(*args))
+                err = _max_abs_diff(runs[vi, li](), want)
+                if err != 0.0:
+                    raise AssertionError(f"phase 16 {kernel} {v} level {li}: kernel and plain differ by {err}")
+        idx = list(range(len(variants)))
+        order = [(vi, li) for vi in idx + idx[::-1] for li in range(len(levels))]
+        ms = _device_ms_batch([(runs[key], 20, kernels[kernel].cuda_name) for key in order])
+        names = [" ".join(f"{k}={x}" for k, x in v.items()) or "the package's build" for v in variants]
+        for vi, name in enumerate(names):
+            pairs = [[m for key, m in zip(order, ms) if key == (vi, li)] for li in range(len(levels))]
+            out[kernel, vi] = [min(p) for p in pairs]
+            log(f"phase 16 {kernel} {name}: " + " / ".join(
+                f"{min(p) * 1e3:.3f} us (runs {p[0] * 1e3:.3f}, {p[1] * 1e3:.3f})" for p in pairs)
+                + f" at the {' / '.join(str(a[2].shape[-1]) + '-wide' for a in levels)} levels, "
+                f"{sum(out[kernel, vi]):.5f} ms over {len(levels)}; bit-equal with the plain version {card}")
+        best = [names[min(idx, key=lambda vi: out[kernel, vi][li])] for li in range(len(levels))]
+        consts = sorted({k for v in variants for k in v})
+        log(f"phase 16 {kernel}: fastest per level (finest first) {best}; the source's "
+            + ", ".join(f"{k} = {_source_constant('fused_ne.cu', k)}" for k in consts) + f" {card}")
 
 
 def _evaluated(history):
@@ -1634,6 +1703,9 @@ def main() -> int:
 
     # 15. kernel 4 against grid_sample in alternation
     _mxu_alternated(captured["bilinear_sample_mxu"], card, log)
+
+    # 16. the NE kernel's CTA count and points in flight, the sampler's points per thread
+    _residual_sweep(captured, variant_libs, card, log)
     _sync()
     for name in PROFILES:  # the long profiler windows last: no kernel timing follows them
         profile_times[name][3]()

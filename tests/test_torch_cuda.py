@@ -330,6 +330,111 @@ def test_fused_ne_kernels_equal_plain_bit_for_bit(device, F, max_points, interpo
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _random_level(device, B, F, P, seed, pcl_offset=0):
+    """Random level data on a 120x160 image, about 90 % of the points in the
+    interest mask and most of those in view; the pcl (and mask) storage
+    starts ``pcl_offset`` elements into its allocation."""
+    Hi, Wi = 120, 160
+    g = torch.Generator(device=device).manual_seed(seed)
+    z = 1.0 + torch.rand(B, F, P, 1, device=device, generator=g)
+    xy = (torch.rand(B, F, P, 2, device=device, generator=g) - 0.5) * 1.6 * z
+    pcl = torch.empty(B * F * P * 3 + pcl_offset, device=device)[pcl_offset:].view(B, F, P, 3)
+    pcl.copy_(torch.cat([xy, z], dim=-1))
+    mask = torch.empty(B * F * P + pcl_offset, dtype=torch.bool, device=device)[pcl_offset:].view(B, F, P)
+    mask.copy_(torch.rand(B, F, P, device=device, generator=g) < 0.9)
+    data = ic.ICLevelData(pcl=pcl, J=torch.randn(B, F, P, 6, device=device, generator=g),
+                          templ=torch.rand(B, F, P, device=device, generator=g) * 255, mask=mask,
+                          n_constraints=mask.sum(-1).float())
+    angle = 0.002 * torch.arange(B * F, device=device, dtype=torch.float32).reshape(B, F)
+    R = torch.zeros(B, F, 3, 3, device=device)
+    R[..., 0, 0] = R[..., 1, 1] = torch.cos(angle)
+    R[..., 0, 1], R[..., 1, 0] = -torch.sin(angle), torch.sin(angle)
+    R[..., 2, 2] = 1.0
+    rel = SE3(R, torch.full((B, F, 3), 0.01, device=device))
+    cam = Camera(*(torch.full((B,), v, device=device) for v in (100.0, 100.0, (Wi - 1) / 2, (Hi - 1) / 2)))
+    img = torch.rand(B, Hi, Wi, device=device, generator=g) * 255
+    return data, rel, img, cam
+
+
+@pytest.mark.parametrize("B,F,P,pcl_offset", [(3, 2, 13, 0), (2, 1, 1, 0), (64, 1, 1920, 0), (3, 2, 1203, 1)],
+                         ids=["P-below-16-per-CTA", "P-1", "level-0-shape", "pcl-off-a-16-byte-boundary"])
+@pytest.mark.parametrize("interpolation,image_dtype", [("nearest", torch.bfloat16), ("bilinear", torch.float32)])
+def test_fused_ne_kernels_equal_plain_at_edge_shapes(device, B, F, P, pcl_offset, interpolation, image_dtype):
+    """Shapes the redesigned kernels split unevenly: fewer than 16 points a
+    frame, a frame of one point (both on one NE CTA), align_pairs' finest
+    level (B = 64, F = 1, P = 1920, on the NE cluster), and pcl and mask
+    storage that starts 4 bytes off a 16-byte boundary with P odd and above
+    the cluster's threshold, so the NE's vector loads of J and, with more
+    points per thread, the sampler's, fall back to narrower ones. Bit for
+    bit."""
+    data, rel, img, cam = _random_level(device, B, F, P, seed=P, pcl_offset=pcl_offset)
+    assert data.pcl.data_ptr() % 16 == 4 * pcl_offset
+    args = (data, rel, img.to(image_dtype), cam, interpolation)
+    before = (fused_ne.SAMPLE_LAUNCHES, fused_ne.NE_LAUNCHES)
+    sample_k, sample_p = fused_ne.fused_level_sample(*args), fused_ne.fused_level_sample_plain(*args)
+    ne_k, ne_p = fused_ne.fused_level_ne(*args), fused_ne.fused_level_ne_plain(*args)
+    torch.cuda.synchronize()
+    assert (fused_ne.SAMPLE_LAUNCHES, fused_ne.NE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    if P > 1:
+        assert 0.3 < sample_k[1].float().mean().item() < 1.0
+    for a, b in zip(sample_k + ne_k, sample_p + ne_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def ne_cluster_of_8(device):
+    """The NE kernel built with a cluster of 8 CTAs for every frame size, as
+    chip_smoke.py's sweep builds it."""
+    from vslam_tpu_torch import _build
+
+    (lib,) = _build.Variants([("fused_ne", {"kNeCtas": 8, "kNeClusterPoints": 0})]).load()
+    return lib
+
+
+@pytest.mark.parametrize("P", [1, 13, 100])
+def test_ne_cluster_with_empty_shares_equals_plain(device, ne_cluster_of_8, P):
+    """With 8 CTAs for frames of 1, 13 and 100 points (shares of 16), most
+    CTAs of a cluster hold no point: bit for bit against the plain version
+    summing over 8 blocks."""
+    data, rel, img, cam = _random_level(device, 3, 2, P, seed=P)
+    args = (data, rel, img, cam, "bilinear")
+    got = fused_ne._launch_ne(*args, lib=ne_cluster_of_8)
+    want = fused_ne.fused_level_ne_plain(*args, ctas=8)
+    torch.cuda.synchronize()
+    assert bool((got[3] > 0).any())  # some frame has a visible point
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_fused_ne_warp_sum_is_the_plain_order_bit_for_bit(device):
+    """J and templates drawn over 12 orders of magnitude with both signs, on
+    a zero image with every point in view, so any change in the order of the
+    NE kernel's sums (the reduce-scatter within a warp, the warps, the CTAs
+    of a cluster) changes their bits: the kernel equals
+    `fused_solve._block_sum(ctas=fused_ne.ne_ctas(P))` bit for bit, and the
+    sums in another CTA count's order differ."""
+    B, F, P = 4, 2, 1920
+    rng = np.random.default_rng(12)
+
+    def spread(*shape):
+        x = rng.choice([-1.0, 1.0], shape) * 10.0 ** rng.uniform(-6.0, 6.0, shape)
+        return torch.as_tensor(x.astype(np.float32), device=device)
+
+    data, rel, _, cam = _random_level(device, B, F, P, seed=12)
+    pcl = data.pcl * torch.tensor([0.6, 0.6, 1.0], device=device)  # |x / z|, |y / z| < 0.48
+    data = data._replace(pcl=pcl, J=spread(B, F, P, 6), templ=spread(B, F, P), mask=torch.ones_like(data.mask))
+    rel = SE3(torch.eye(3, device=device).expand(B, F, 3, 3).contiguous(), torch.zeros(B, F, 3, device=device))
+    img = torch.zeros(B, 120, 160, device=device)
+    got = fused_ne.fused_level_ne(data, rel, img, cam, "nearest")
+    want = fused_ne.fused_level_ne_plain(data, rel, img, cam, "nearest")
+    other = fused_ne.fused_level_ne_plain(data, rel, img, cam, "nearest", ctas=2 if fused_ne.ne_ctas(P) == 1 else 1)
+    torch.cuda.synchronize()
+    assert bool((got[3] == P).all())  # every point visible
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not all(torch.equal(a, b) for a, b in zip(got[:3], other[:3]))
+
+
 def test_mxu_kernel_equals_plain_bit_for_bit(device):
     rng = np.random.default_rng(5)
     B, M = 3, 5000

@@ -127,6 +127,33 @@ def test_ne_plain_matches_jax_kernel(level, F, interp, image_dtype):
     np.testing.assert_array_equal(n_t, n_j)
 
 
+@pytest.mark.parametrize("ctas", [1, fused_ne.NE_CTAS], ids=["one-block", "NE_CTAS"])
+def test_ne_plain_in_either_block_order_matches_jax_kernel(level, ctas):
+    """The plain NE summing as one block per frame and as the kernel's
+    cluster of NE_CTAS blocks: each within the JAX kernel's limits above."""
+    jargs, targs, _ = _inputs(level, 2, "float32")
+    A_j, b_j, chi2_j, n_j = (np.asarray(x) for x in jfused_ne.fused_level_ne(*jargs, interp="bilinear"))
+    A_t, b_t, chi2_t, n_t = (x[0].numpy() for x in fused_ne.fused_level_ne_plain(*targs, "bilinear", ctas=ctas))
+    np.testing.assert_allclose(A_t, A_j, rtol=2e-4, atol=1e-3)
+    np.testing.assert_allclose(b_t, b_j, rtol=2e-4, atol=1e-2)
+    np.testing.assert_allclose(chi2_t, chi2_j, rtol=1e-3)
+    np.testing.assert_array_equal(n_t, n_j)
+
+
+def test_ne_plain_block_orders_agree_to_f32_rounding(level):
+    """One block per frame and a cluster of NE_CTAS blocks add the same
+    ~2000 terms a frame in two orders: every sum within 1e-6 of the largest
+    of its kind (A, b, chi2) per frame, 8 f32 ulps of it (the two orders
+    differ by at most one such ulp here); the visible count is exact."""
+    _, targs, _ = _inputs(level, 2, "float32")
+    one = fused_ne.fused_level_ne_plain(*targs, "bilinear", ctas=1)
+    many = fused_ne.fused_level_ne_plain(*targs, "bilinear", ctas=fused_ne.NE_CTAS)
+    for a, b in zip(one[:3], many[:3]):
+        scale = a.abs().reshape(*a.shape[:2], -1).amax(-1).reshape(*a.shape[:2], *[1] * (a.dim() - 2))
+        assert bool(((a - b).abs() <= 1e-6 * scale).all()), ((a - b).abs() / scale).max()
+    torch.testing.assert_close(one[3], many[3], rtol=0, atol=0)
+
+
 def test_wrappers_run_the_plain_versions_on_cpu(level):
     """On CPU tensors the wrappers return the plain versions' results and
     launch nothing."""

@@ -207,15 +207,21 @@ def test_chip_smoke_result_line_keeps_the_contract():
 
 @pytest.mark.parametrize("source,name,mirror", [("fused_solve.cu", "kCtas", "CTAS"),
                                                 ("fused_solve.cu", "kShareAlign", "_SHARE_ALIGN"),
-                                                ("warp_sample.cuh", "kThreads", "_THREADS")])
+                                                ("warp_sample.cuh", "kThreads", "_THREADS"),
+                                                ("fused_ne.cu", "kNeCtas", "NE_CTAS"),
+                                                ("fused_ne.cu", "kNeClusterPoints", "NE_CLUSTER_POINTS"),
+                                                ("fused_ne.cu", "kShareAlign", "_SHARE_ALIGN")])
 def test_plain_version_mirrors_the_kernel_constants(source, name, mirror):
-    """The plain whole-level solve sums in the kernel's order only while its
-    constants are the CUDA source's."""
+    """The plain whole-level solve and NE sum in their kernels' order only
+    while their constants are the CUDA sources'. A mirror lives on the
+    wrapper's module (fused_ne for the NE kernel's cluster) or, shared by
+    both, on fused_solve."""
     import re
 
     text = (_build.SRC_DIR / source).read_text()
     (value,) = re.findall(rf"constexpr int {name} = (\d+);", text)
-    assert int(value) == getattr(fused_solve, mirror)
+    owner = fused_ne if hasattr(fused_ne, mirror) else fused_solve
+    assert int(value) == getattr(owner, mirror)
 
 
 def test_build_names_the_hopper_target_and_refuses_without_nvcc(monkeypatch):

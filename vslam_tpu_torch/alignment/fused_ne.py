@@ -20,8 +20,10 @@ as `precompute_level` lays it out, with no packing:
 
 Each has a plain PyTorch twin (`*_plain`), on any device: the CPU path, and
 the oracle the kernel is held against bit for bit on the card (the NE sums
-run in the kernel's order, `fused_solve._block_sum`). The wrappers take the
-twin for CPU tensors and, for any other device, launch the kernel or raise.
+run in the kernel's order, `fused_solve._block_sum(ctas=ne_ctas(P))`: a
+cluster of `NE_CTAS` blocks per (pair, frame) above `NE_CLUSTER_POINTS`
+points, else one block). The wrappers take the twin
+for CPU tensors and, for any other device, launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -42,11 +44,20 @@ __all__ = [
     "fused_level_ne_plain",
     "SAMPLE_LAUNCHES",
     "NE_LAUNCHES",
+    "NE_CTAS",
+    "NE_CLUSTER_POINTS",
+    "ne_ctas",
 ]
 
 # kernel launches made by the wrappers (one per call on CUDA tensors)
 SAMPLE_LAUNCHES = 0
 NE_LAUNCHES = 0
+
+# thread blocks per (pair, frame) of the NE kernel (csrc/fused_ne.cu kNeCtas,
+# one cluster) for frames of more than NE_CLUSTER_POINTS points
+# (kNeClusterPoints), one block for smaller ones: fix its sum order
+NE_CTAS = 2
+NE_CLUSTER_POINTS = 1024
 
 _QUADRATIC = LossConfig("None")
 _NE_OUT = 44  # csrc/fused_ne.cu kNeOut: A (36), b (6), chi2, n_visible
@@ -57,9 +68,18 @@ def fused_level_sample_plain(data, rel: SE3, image: torch.Tensor, cam: Camera, i
     return _sample(data, rel, image, cam, interpolation == "bilinear")
 
 
-def fused_level_ne_plain(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation="bilinear"):
-    """The plain version of `fused_level_ne`, on any device."""
-    sums = _frame_sums(data, rel, image, cam, interpolation == "bilinear", _QUADRATIC, 1)
+def ne_ctas(P: int) -> int:
+    """The NE kernel's blocks per (pair, frame) for frames of P points."""
+    return NE_CTAS if P > NE_CLUSTER_POINTS else 1
+
+
+def fused_level_ne_plain(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation="bilinear", *,
+                         ctas: int | None = None):
+    """The plain version of `fused_level_ne`, on any device. ``ctas`` is the
+    kernel's blocks per (pair, frame), which fixes its sum order; by default
+    the kernel's own, `ne_ctas(P)`."""
+    ctas = ne_ctas(data.mask.shape[-1]) if ctas is None else ctas
+    sums = _frame_sums(data, rel, image, cam, interpolation == "bilinear", _QUADRATIC, ctas)
     return _gram_matrix(sums), sums[..., 21:27], sums[..., 27], sums[..., 28]
 
 
@@ -100,16 +120,21 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launch_sample(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation):
+def _launch_sample(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation, lib=None):
+    """The sample kernel's launch; ``lib`` another build's C entries (a
+    design variant or an earlier version, for measurements), by default the
+    package's."""
     global SAMPLE_LAUNCHES
     from .._build import library
 
     tensors, sizes, (B, F, P) = _level_args(data, rel, image, cam, with_ne=False)
+    if B * F > 65535:  # the kernel's grid has one row of blocks per (pair, frame)
+        raise ValueError(f"fused_level_sample takes at most 65535 (pair, frame) rows, got B={B} F={F}")
     dev = data.pcl.device
     iwxp = torch.empty(B, F, P, dtype=torch.float32, device=dev)
     visible = torch.empty(B, F, P, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        err = library().vslam_fused_level_sample(
+        err = (lib or library()).vslam_fused_level_sample(
             *_ptrs(tensors), *sizes, ctypes.c_int(int(interpolation == "bilinear")),
             ctypes.c_void_p(iwxp.data_ptr()), ctypes.c_void_p(visible.data_ptr()), _stream(dev))
     if err != 0:
@@ -118,7 +143,8 @@ def _launch_sample(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolati
     return iwxp, visible
 
 
-def _launch_ne(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation):
+def _launch_ne(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation, lib=None):
+    """The NE kernel's launch; ``lib`` as for `_launch_sample`."""
     global NE_LAUNCHES
     from .._build import library
 
@@ -126,7 +152,7 @@ def _launch_ne(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation):
     dev = data.pcl.device
     out = torch.empty(B, F, _NE_OUT, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = library().vslam_fused_level_ne(
+        err = (lib or library()).vslam_fused_level_ne(
             *_ptrs(tensors), *sizes, ctypes.c_int(int(interpolation == "bilinear")),
             ctypes.c_void_p(out.data_ptr()), _stream(dev))
     if err != 0:
@@ -137,16 +163,18 @@ def _launch_ne(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation):
 
 def fused_level_sample(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation="bilinear"):
     """Warped intensities and visibility of every point: one kernel launch
-    for all B x F x P points (CUDA tensors) or the plain version (CPU
-    tensors). Returns (iwxp (B, F, P) f32, visible (B, F, P) bool)."""
+    for all B x F x P points, B x F at most 65535 (CUDA tensors), or the
+    plain version (CPU tensors). Returns (iwxp (B, F, P) f32, visible
+    (B, F, P) bool)."""
     if data.pcl.device.type == "cpu":
         return fused_level_sample_plain(data, rel, image, cam, interpolation)
     return _launch_sample(data, rel, image, cam, interpolation)
 
 
 def fused_level_ne(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation="bilinear"):
-    """Raw per-frame normal equations at rel: one kernel launch, one block
-    per (pair, frame) (CUDA tensors), or the plain version (CPU tensors).
+    """Raw per-frame normal equations at rel: one kernel launch, `ne_ctas(P)`
+    blocks per (pair, frame) (CUDA tensors), or the plain version (CPU
+    tensors).
     Returns (A (B, F, 6, 6), b (B, F, 6), chi2 (B, F), n_visible (B, F))."""
     if data.pcl.device.type == "cpu":
         return fused_level_ne_plain(data, rel, image, cam, interpolation)

@@ -66,15 +66,12 @@
 // Tensor cores are not used: JᵀWJ is 28 f32 sums per point in a fixed
 // order that the plain version and the JAX parity tests (f32, "highest")
 // rely on; TF32 mma would change both.
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "warp_sample.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace vslam {
 
@@ -312,20 +309,12 @@ struct Frame {             // a CTA's share of one frame's data
   int n;                   // points in the share
 };
 
-__device__ __forceinline__ void cluster_sync() {
-  if constexpr (kCtas == 1)
-    __syncthreads();
-  else
-    cg::this_cluster().sync();
-}
+__device__ __forceinline__ void cluster_sync() { cluster_barrier<kCtas>(); }
 
 // ``p`` in the shared memory of the cluster's CTA ``rank``
 template <typename T>
 __device__ __forceinline__ T* at_rank(T* p, int rank) {
-  if constexpr (kCtas == 1)
-    return p;
-  else
-    return cg::this_cluster().map_shared_rank(p, rank);
+  return rank_ptr<kCtas>(p, rank);
 }
 
 // The cluster's sum of a CTA partial, in rank order.

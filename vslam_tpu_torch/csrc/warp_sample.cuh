@@ -1,16 +1,18 @@
 // Per-point device functions of the inverse-compositional residual pass:
 // SE(3) warp + pinhole projection + visibility, intensity sampling, and the
-// (robustly weighted) Gram accumulation of one point, plus the block-wide
-// sum of the Gram partials. Ports of `fused_ne._sample_chunk` and
-// `fused_ne._gram_chunk` (vslam_tpu/alignment/fused_ne.py:113-231), shared
-// by the whole-level solve kernel (fused_solve.cu) and the ports of
-// `fused_level_ne` and `fused_level_sample` (fused_ne.cu).
+// (robustly weighted) Gram accumulation of one point, plus a warp's
+// reduce-scatter sum and the thread-block cluster's barrier and shared-memory
+// map. Ports of `fused_ne._sample_chunk` and `fused_ne._gram_chunk`
+// (vslam_tpu/alignment/fused_ne.py:113-231), shared by the whole-level solve
+// kernel (fused_solve.cu) and the ports of `fused_level_ne` and
+// `fused_level_sample` (fused_ne.cu).
 //
 // The TPU kernels sample through one-hot matmuls because Mosaic has no
 // gather; here every point reads its 1 (nearest) or 4 (bilinear) pixels
 // directly through the read-only cache.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
 namespace vslam {
@@ -119,33 +121,48 @@ __device__ __forceinline__ void gram_accumulate_weighted(float (&acc)[kGram], co
   acc[kGramCount] += 1.0f;
 }
 
-// Shared scratch of block_reduce.
-struct GramScratch {
-  float warp[kWarps][kGram];
-  float sum[kGram];
-};
+// The warp's sums of 32 values held by every lane, one sum per lane: lane k
+// returns the sum of value k over the 32 lanes (a reduce-scatter). At each
+// xor offset o = 16, 8, 4, 2, 1 a lane sends its partner the half of its
+// values that the partner keeps and adds the half it receives to the half it
+// keeps: 31 shuffles, where a shuffle-down tree per value takes 5 each. Step
+// o adds the partials of lanes l and l + o, the pairs the shuffle-down tree
+// adds (xor pairs the same lanes, and f32 addition commutes), so lane k's
+// sum is that tree's sum of value k bit for bit. The offset is a template
+// argument, so every index is a constant and v stays in registers.
+template <int O>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[32], int lane) {
+  const bool upper = lane & O;  // keeps the values whose bit O is set
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = upper ? v[i] : v[i + O];
+    const float keep = upper ? v[i + O] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+  if constexpr (O > 1) reduce_scatter_step<O / 2>(v, lane);
+}
 
-// Sum the per-thread partials over the block: warp shuffles, then one pass
-// over the per-warp rows in shared memory (the order fused_solve._block_sum
-// reproduces). Ends synchronized, so every thread may read s.sum and the next
-// call may reuse s.warp.
-__device__ __forceinline__ void block_reduce(float (&acc)[kGram], GramScratch& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kGram; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) s.warp[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kGram) {
-    float v = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += s.warp[w][threadIdx.x];
-    s.sum[threadIdx.x] = v;
-  }
-  __syncthreads();
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[32]) {
+  reduce_scatter_step<16>(v, threadIdx.x & 31);
+  return v[0];
+}
+
+// A barrier over the kC CTAs of a thread-block cluster (kC = 1: the block).
+template <int kC>
+__device__ __forceinline__ void cluster_barrier() {
+  if constexpr (kC == 1)
+    __syncthreads();
+  else
+    cooperative_groups::this_cluster().sync();
+}
+
+// ``p`` in the shared memory of CTA ``rank`` of a cluster of kC CTAs
+template <int kC, typename T>
+__device__ __forceinline__ T* rank_ptr(T* p, int rank) {
+  if constexpr (kC == 1)
+    return p;
+  else
+    return cooperative_groups::this_cluster().map_shared_rank(p, rank);
 }
 
 }  // namespace vslam
