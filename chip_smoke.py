@@ -85,6 +85,31 @@ Phases, each ending in torch.cuda.synchronize():
                 plain version (the NE's summing in that count's order),
                 device ms per level, best of two runs in turns; the
                 source's constants are the chosen ones
+ 17. pipeline — `OdometryPipeline` over the odometry profile's 64 frames
+                as a TUM reader yields them (uint8 / uint16), production
+                profile (`fused_gn`, bf16, 2048 points): the software-
+                pipelined and the strict schedule, each with 3 x 63
+                whole-level launches, ATE < 0.01 m, the same keyframes and
+                per-frame poses within 2e-3 of each other; frames/s (two
+                runs of each, in turns) and the host's waits per frame
+                (torch's sync debug mode) of each;
+                kernel 1 against its plain version at one frame's level-0
+                inputs, bit for bit; host ms, launch calls and device-busy
+                ms per frame under torch.profiler; 8 frames each with Huber
+                (kernel 1b), `fused` quadratic (kernel 3) and Huber (kernel
+                2), and `mxu` (kernel 4), one launch per evaluated
+                iteration, and 16 frames of the default `gather`
+                configuration, which launches no kernel; ATE < 0.01 m each
+ 18. CLI      — `python -m vslam_tpu_torch.eval.evaluate synthetic` at
+                480x640 on the host loop and with --fused (ATE < 0.01 m),
+                then `evaluate`, `ate` and `rpe` on phase 17's trajectory
+                (exit 0), and `odometry` on a TUM directory where PIL is
+                importable to write its PNG files (the output says which)
+ 19. sizes    — the robust entry on the 64 pairs' dense level 0 (F = 2,
+                307,200 points a frame) with its residual cache in global
+                scratch, Huber and Tukey, and the per-iteration sampler at
+                70,000 (pair, frame) rows, above the grid's y extent; each
+                bit for bit against its plain version
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for its work (`_bound`); the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script
@@ -1507,6 +1532,352 @@ def _mxu_alternated(by_width, card, log):
     return out
 
 
+# phase 17: frames of the pipeline's short runs in other configurations, of
+# the default (gather) configuration's run, and of the profiled window
+PIPE_SHORT_FRAMES = 8
+PIPE_GATHER_FRAMES = 16
+PIPE_PROFILED_FRAMES = 16
+# phase 18: frames of each synthetic CLI run
+CLI_FRAMES = 16
+# phase 19: GN iterations of the dense robust solves, and the sampler's rows
+DENSE_ITERATIONS = 10
+SAMPLE_ROWS = 70_000
+
+
+def _host_waits(fn):
+    """(fn()'s result, the host's waits for the card inside it): every
+    synchronizing CUDA call, as torch's sync debug mode reports them."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def _pipeline_run(cfg, stream, pipelined, device):
+    """One `OdometryPipeline` run over ``stream`` with every launch count
+    at 0, each level solve's evaluated iterations recorded and the host's
+    waits for the card counted. Returns (trajectory, the keyframes' stamps,
+    wall s, evaluated iterations, host waits)."""
+    import torch
+
+    from vslam_tpu_torch.alignment import ic
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.odometry.pipeline import OdometryPipeline
+
+    pipe = OdometryPipeline(Camera(FX, FX, (W - 1) / 2, (H - 1) / 2), cfg, device=device)
+    keyframes = []
+    insert = pipe.map.insert
+
+    def record(frame, is_keyframe=False):
+        if is_keyframe:
+            keyframes.append(frame.t_ns)
+        insert(frame, is_keyframe)
+
+    pipe.map.insert = record
+    hist = []
+    _reset_launches()
+    _sync()
+    with _tap(ic, "solve_level", lambda a, out: hist.append(out[1].chi2_history)):
+        t0 = time.perf_counter()
+        traj, waits = _host_waits(lambda: pipe.run(iter(stream), pipelined=pipelined))
+        _sync()
+        wall = time.perf_counter() - t0
+    evaluations = sum(int(torch.isfinite(h).sum()) for h in hist)
+    return traj, keyframes, wall, evaluations, waits
+
+
+def _trajectory_ate(poses, traj):
+    return _ate(poses, [(t, T, None) for t, T in traj.items()])
+
+
+def _pipeline_profiled(cfg, stream, pipelined, device):
+    """(host ms, CUDA launch calls, device-busy ms) per frame of one
+    pipeline run under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.odometry.pipeline import OdometryPipeline
+
+    pipe = OdometryPipeline(Camera(FX, FX, (W - 1) / 2, (H - 1) / 2), cfg, device=device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.run(iter(stream), pipelined=pipelined)
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    calls = sum(1 for e in events if e.device_type == DeviceType.CPU
+                and e.name.startswith(("cudaLaunch", "cuLaunch")))
+    _, busy = _device_busy(events)
+    n = len(stream)
+    return wall / n, calls / n, busy / n
+
+
+def _pipeline(poses, stream, device, card, log):
+    """Phase 17: `OdometryPipeline` at 480x640 over the odometry profile's
+    frames in the sensor dtypes, production profile (`fused_gn`, bf16,
+    2048 points), software-pipelined and strict; kernel 1 against its plain
+    version at one frame's level-0 inputs; 8 frames each of Huber,
+    `fused` (quadratic, then Huber), `mxu`, and 16 frames of the default
+    `gather` configuration. Returns {kernel name: launches}."""
+    import dataclasses
+
+    from vslam_tpu_torch.alignment import fused_ne, fused_solve, pallas_kernels
+    from vslam_tpu_torch.config import PipelineConfig
+    from vslam_tpu_torch.core import lie_np
+
+    n = len(stream)
+    levels = N_LEVELS * (n - 1)
+    cfg = PipelineConfig(sampler="fused_gn", image_dtype="bfloat16", features_max_points=2048)
+    runs, walls, captured, counts = {}, {"pipelined": [], "strict": []}, {}, {"solve_level_fused": 0}
+    sink = lambda a, _: captured.__setitem__("level0", a) if a[2].shape[-1] == W else None  # noqa: E731
+    # in turns, so that the two schedules share the host's state
+    for label in ("pipelined", "strict", "strict", "pipelined"):
+        with _tap(fused_solve, "solve_level_fused", sink):
+            traj, kfs, wall, _, waits = _pipeline_run(cfg, stream, label == "pipelined", device)
+        launches = _launches()
+        counts["solve_level_fused"] += launches[0]
+        ate = _trajectory_ate(poses, traj)
+        walls[label].append(wall)
+        log(f"phase 17 pipeline {label}: {n} frames at {H}x{W}, fused_gn bf16 2048 points; whole-level "
+            f"launches (quadratic, robust) {launches} (expected ({levels}, 0)); keyframes {len(kfs)}; ATE "
+            f"{ate:.5f} m (gate 0.01); {n / wall:.2f} frames/s ({wall:.3f} s); host waits {waits} = "
+            f"{waits / n:.3f} per frame (torch's sync debug mode) {card}")
+        if launches != (levels, 0) or not ate < 0.01:
+            raise AssertionError(f"phase 17 {label}: launches {launches} or ATE {ate} off")
+        runs.setdefault(label, (traj, kfs, waits))
+    for label, ws in walls.items():
+        log(f"phase 17 pipeline {label}: {n / min(ws):.2f} frames/s, best of {', '.join(f'{w:.3f}' for w in ws)} s "
+            f"(runs in turns pipelined, strict, strict, pipelined) {card}")
+    (tp, kp, waits_p), (ts, ks, waits_s) = runs["pipelined"], runs["strict"]
+    # the strict loop fetches every aligned frame's pose; the pipelined one
+    # a batch of 4 at a time (and seeds its device chain once)
+    if waits_s < n - 1 or waits_p > waits_s / 2:
+        raise AssertionError(f"phase 17: host waits {waits_p} pipelined, {waits_s} strict over {n} frames")
+    gaps = [np.linalg.norm(lie_np.log(lie_np.relative(tp.pose_at(t), T))) for t, T in ts.items()]
+    log(f"phase 17 strict against pipelined: per-frame pose gap max {max(gaps):.3e} (gate 2e-3), the "
+        f"same keyframes {kp == ks}")
+    if not (kp == ks and max(gaps) < 2e-3 and len(ts) == len(tp) == n):
+        raise AssertionError("phase 17: the two schedules disagree")
+
+    args = captured["level0"]
+    out_k = fused_solve.solve_level_fused(*args)
+    out_p = fused_solve.solve_level_fused_plain(*args)
+    err = _solve_result_diff(out_k, out_p)
+    log(f"phase 17 kernel 1 at the last run's last level-0 inputs (F={args[0].templ.shape[1]}, "
+        f"P={args[0].templ.shape[-1]}): max abs difference from the plain version {err:.3e} over the "
+        f"pose, A, b, chi2, iterations and histories")
+    if err != 0.0:
+        raise AssertionError(f"phase 17: kernel 1 and its plain version differ by {err}")
+
+    for label, pipelined in (("pipelined", True), ("strict", False)):
+        host_ms, calls, busy = _pipeline_profiled(cfg, stream[:PIPE_PROFILED_FRAMES], pipelined, device)
+        log(f"phase 17 pipeline {label} under torch.profiler ({PIPE_PROFILED_FRAMES} frames): host "
+            f"{host_ms:.3f} ms, {calls:.1f} launch calls, device busy {busy:.3f} ms per frame "
+            f"({busy / host_ms:.3f} of the wall) {card}")
+
+    short = stream[:PIPE_SHORT_FRAMES]
+    others = {
+        "solve_level_fused_robust": ("Huber, fused_gn", dataclasses.replace(cfg, loss_function="Huber"),
+                                     lambda: fused_solve.ROBUST_LAUNCHES),
+        "fused_level_ne": ("fused, quadratic", dataclasses.replace(cfg, sampler="fused"),
+                           lambda: fused_ne.NE_LAUNCHES),
+        "fused_level_sample": ("fused, Huber", dataclasses.replace(cfg, sampler="fused", loss_function="Huber"),
+                               lambda: fused_ne.SAMPLE_LAUNCHES),
+        "bilinear_sample_mxu": ("mxu, f32", dataclasses.replace(cfg, sampler="mxu", image_dtype="float32"),
+                                lambda: pallas_kernels.MXU_LAUNCHES),
+    }
+    for name, (label, cfg_k, counter) in others.items():
+        traj, _, wall, evaluations, _ = _pipeline_run(cfg_k, short, True, device)
+        all_counts = (fused_solve.LAUNCHES, fused_ne.SAMPLE_LAUNCHES, fused_ne.NE_LAUNCHES,
+                      pallas_kernels.MXU_LAUNCHES)
+        counts[name] = counter()
+        ate = _trajectory_ate(poses[:len(short)], traj)
+        want = N_LEVELS * (len(short) - 1) if name == "solve_level_fused_robust" else evaluations
+        log(f"phase 17 pipeline {label}: {len(short)} frames, {name} launches {counts[name]} (expected "
+            f"{want}; evaluated iterations {evaluations}); launches (whole-level, sample, NE, mxu) "
+            f"{all_counts}; ATE {ate:.5f} m (gate 0.01); {len(short) / wall:.2f} frames/s {card}")
+        if counts[name] != want or sum(all_counts) != counts[name] or not ate < 0.01:
+            raise AssertionError(f"phase 17 {label}: launches {all_counts} or ATE {ate} off")
+
+    gather = stream[:PIPE_GATHER_FRAMES]
+    traj, _, wall, _, _ = _pipeline_run(PipelineConfig(), gather, True, device)
+    all_counts = (fused_solve.LAUNCHES, fused_ne.SAMPLE_LAUNCHES, fused_ne.NE_LAUNCHES, pallas_kernels.MXU_LAUNCHES)
+    ate = _trajectory_ate(poses[:len(gather)], traj)
+    log(f"phase 17 pipeline, default configuration (gather, dense 32768 points, f32): {len(gather)} frames, "
+        f"kernel launches {all_counts} (expected none); ATE {ate:.5f} m (gate 0.01); "
+        f"{len(gather) / wall:.2f} frames/s {card}")
+    if any(all_counts) or not ate < 0.01:
+        raise AssertionError(f"phase 17 gather: launches {all_counts} or ATE {ate} off")
+    return counts, tp
+
+
+def _cli_json(argv):
+    """(exit code, printed lines) of one `evaluate.main` call."""
+    import io
+
+    from vslam_tpu_torch.eval import evaluate
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = evaluate.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def _cli(poses, traj, stream, card, log):
+    """Phase 18: the CLI's `synthetic` at 480x640, host loop and --fused
+    (ATE < 0.01 m); `evaluate`, `ate` and `rpe` on phase 17's pipelined
+    trajectory and its ground truth (exit 0); `odometry` on a TUM directory
+    where PIL is importable to write its PNGs."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.io import tum
+
+    for flags in ([], ["--fused"]):
+        t0 = time.perf_counter()
+        rc, lines = _cli_json(["synthetic", "--frames", str(CLI_FRAMES), "--height", str(H), "--width", str(W),
+                               "--fx", str(FX), *flags])
+        (res,) = [json.loads(line) for line in lines if line.startswith("{")]
+        log(f"phase 18 CLI synthetic {' '.join(flags) or '(host loop)'}: exit {rc}, {res} "
+            f"({time.perf_counter() - t0:.1f} s with the rendering) {card}")
+        if rc != 0 or not res["ate_rmse_m"] < 0.01 or res["frames"] != CLI_FRAMES:
+            raise AssertionError(f"phase 18 synthetic {flags}: exit {rc}, {res}")
+    with tempfile.TemporaryDirectory() as d:
+        gt, est = os.path.join(d, "groundtruth.txt"), os.path.join(d, "trajectory.txt")
+        tum.write_trajectory(gt, {i * DT_NS / 1e9: lie_np.inv(p) for i, p in enumerate(poses)})
+        tum.write_trajectory(est, {t / 1e9: lie_np.inv(T) for t, T in traj.items()})
+        for argv in (["evaluate", "--fixed-delta", "0.2"], ["ate", "--verbose"],
+                     ["rpe", "--fixed-delta", "--delta", "0.2", "--verbose"]):
+            rc, lines = _cli_json([argv[0], "--gt", gt, "--algo", est, *argv[1:]])
+            log(f"phase 18 CLI {' '.join(argv)}: exit {rc}: {' | '.join(lines)}")
+            if rc != 0:
+                raise AssertionError(f"phase 18 {argv[0]}: exit {rc}")
+        if importlib.util.find_spec("PIL") is None:
+            log("phase 18 CLI odometry on a TUM directory: not run, PIL is not importable here to write "
+                "its PNG files")
+            return
+        from PIL import Image
+
+        root = os.path.join(d, "tum")
+        os.makedirs(os.path.join(root, "rgb"))
+        os.makedirs(os.path.join(root, "depth"))
+        rgb, depth = [], []
+        for i, (_, gray, d16) in enumerate(stream[:PIPE_SHORT_FRAMES]):
+            t = 1000.0 + i / 30.0
+            Image.fromarray(gray).save(os.path.join(root, "rgb", f"{t:.6f}.png"))
+            Image.fromarray(d16).save(os.path.join(root, "depth", f"{t:.6f}.png"))
+            rgb.append(f"{t:.6f} rgb/{t:.6f}.png")
+            depth.append(f"{t:.6f} depth/{t:.6f}.png")
+        for name, rows in (("rgb.txt", rgb), ("depth.txt", depth)):
+            with open(os.path.join(root, name), "w") as f:
+                f.write("\n".join(rows) + "\n")
+        rc, lines = _cli_json(["odometry", "--dataset", root, "--out", os.path.join(d, "tum.txt"),
+                               "--intrinsics", f"{FX},{FX},{(W - 1) / 2},{(H - 1) / 2}", "--fused",
+                               "--chunk", "4"])
+        log(f"phase 18 CLI odometry --fused on a TUM directory of {PIPE_SHORT_FRAMES} PNG frames: exit {rc}, "
+            f"{' | '.join(lines)}")
+        if rc != 0:
+            raise AssertionError(f"phase 18 odometry: exit {rc}")
+
+
+def _smem_path(F, P, robust=True):
+    """Where the whole-level kernel keeps the robust residual cache at
+    (F, P): "shared" or "global scratch"."""
+    import ctypes
+
+    from vslam_tpu_torch import _build
+
+    need, limit = ctypes.c_int(0), ctypes.c_int(0)
+    if _build.library().vslam_solve_level_smem(F, P, int(robust), ctypes.byref(need), ctypes.byref(limit)):
+        raise AssertionError("the shared-memory query failed")
+    return ("shared" if need.value <= limit.value else "global scratch"), need.value, limit.value
+
+
+def _size_repairs(frames, xis, log):
+    """Phase 19: the robust entry on the pairs' dense level 0 (F = 2) with
+    its residual cache in global memory, and the per-iteration sampler
+    above the grid's 65,535 rows; each bit for bit against its plain
+    version. Returns {kernel name: max_abs_err}."""
+    import dataclasses
+
+    import torch
+
+    from vslam_tpu_torch.alignment import fused_ne, fused_solve, ic
+    from vslam_tpu_torch.alignment.aligner import stack_frames
+    from vslam_tpu_torch.core import se3
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.core.se3 import SE3
+    from vslam_tpu_torch.solvers import LossConfig, SolverConfig
+
+    for F, P, what in ((1, 2048, "align_pairs / tracking_step"), (2, 2048, "odometry profiles and pipeline"),
+                       (2, 32768, "the default 32768-point budget, F = 2")):
+        log(f"phase 19 robust residual cache at F={F} P={P} ({what}): {_smem_path(F, P)[0]}")
+    ref2 = stack_frames([frames["ref"], frames["mid"]], dim=1)
+    cam = frames["ref"].cameras[0]
+    data = ic.precompute_level(ref2.intensity[0], ref2.dIx[0], ref2.dIy[0], ref2.depth[0], cam,
+                               _production_cfg().min_gradient, max_points=0)
+    n_pairs, F, P = data.templ.shape
+    device = data.templ.device
+    xi = torch.as_tensor(xis * 0.5, dtype=torch.float32, device=device)
+    mid = se3.exp(xi)
+    rel = SE3(torch.stack([mid.R, torch.eye(3, device=device).expand(n_pairs, 3, 3)], 1).contiguous(),
+              torch.stack([mid.t, torch.zeros(n_pairs, 3, device=device)], 1).contiguous())
+    path, need, limit = _smem_path(F, P)
+    err = {}
+    for fn in ("Huber", "Tukey"):
+        cfg = dataclasses.replace(_production_cfg(), loss=LossConfig(fn),
+                                  solver=SolverConfig(DENSE_ITERATIONS, 1e-11, min_relative_reduction=1e-4))
+        args = (data, rel, frames["cur"].intensity[0], frames["cur"].cameras[0], cfg, se3.log(rel))
+        t0 = time.perf_counter()
+        out_k = fused_solve.solve_level_fused(*args)
+        _sync()
+        t_k = time.perf_counter() - t0
+        out_p = fused_solve.solve_level_fused_plain(*args)
+        err[fn] = _solve_result_diff(out_k, out_p)
+        log(f"phase 19 robust entry {fn}, {n_pairs} pairs' dense level 0: F={F} P={P} (F*P {F * P}), residual "
+            f"cache in {path} (shared memory it would need {need} B, the card's limit {limit} B); "
+            f"iterations {out_k[1].iterations.float().mean().item():.2f} mean (<= {DENSE_ITERATIONS}), valid "
+            f"{int(out_k[1].valid.sum())}/{n_pairs}; kernel call {t_k:.3f} s; max abs difference from the "
+            f"plain version {err[fn]:.3e}")
+    del data, out_k, out_p
+    if path != "global scratch" or any(e != 0.0 for e in err.values()):
+        raise AssertionError(f"phase 19 robust: path {path}, differences {err}")
+
+    rows, P, Hs, Ws = SAMPLE_ROWS, 8, 12, 16
+    g = torch.Generator(device=device).manual_seed(3)
+    z = 1.0 + torch.rand(rows // 2, 2, P, 1, device=device, generator=g)
+    xy = (torch.rand(rows // 2, 2, P, 2, device=device, generator=g) - 0.5) * z
+    mask = torch.rand(rows // 2, 2, P, device=device, generator=g) < 0.9
+    level = ic.ICLevelData(pcl=torch.cat([xy, z], dim=-1).contiguous(),
+                           J=torch.zeros(rows // 2, 2, P, 6, device=device),
+                           templ=torch.zeros(rows // 2, 2, P, device=device), mask=mask,
+                           n_constraints=mask.sum(-1).float())
+    rel = SE3(torch.eye(3, device=device).expand(rows // 2, 2, 3, 3).contiguous(),
+              torch.full((rows // 2, 2, 3), 0.01, device=device))
+    cams = Camera(*(torch.full((rows // 2,), v, device=device) for v in (10.0, 10.0, (Ws - 1) / 2, (Hs - 1) / 2)))
+    img = torch.rand(rows // 2, Hs, Ws, device=device, generator=g) * 255
+    got = fused_ne.fused_level_sample(level, rel, img, cams, "bilinear")
+    err["sample"] = _max_abs_diff(got, fused_ne.fused_level_sample_plain(level, rel, img, cams, "bilinear"))
+    visible = got[1].float().mean().item()
+    log(f"phase 19 fused_level_sample at {rows} (pair, frame) rows of {P} points ({Hs}x{Ws}): visible share "
+        f"{visible:.3f}, last row sampled {bool(got[1][-1].any())}; max abs difference from the plain "
+        f"version {err['sample']:.3e}")
+    if err["sample"] != 0.0 or not bool(got[1][-1].any()):
+        raise AssertionError(f"phase 19 sampler: difference {err['sample']}")
+    return {"solve_level_fused_robust": max(err["Huber"], err["Tukey"]), "fused_level_sample": err["sample"]}
+
+
 def result_line(kind: str) -> dict:
     """The contract's last line: the run used one device, cuda:0."""
     return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}
@@ -1710,6 +2081,27 @@ def main() -> int:
     for name in PROFILES:  # the long profiler windows last: no kernel timing follows them
         profile_times[name][3]()
     _sync()
+
+    # 17. the per-frame pipeline, both schedules, and the other configurations
+    t0 = time.perf_counter()
+    launches_pipe, traj_pipe = _pipeline(*streams["odometry"], device, card, log)
+    log(f"phase 17 took {time.perf_counter() - t0:.1f} s")
+
+    # 18. the CLI
+    t0 = time.perf_counter()
+    _cli(streams["odometry"][0], traj_pipe, streams["odometry"][1], card, log)
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    # 19. the size repairs: the robust entry's global residual cache, the sampler's rows
+    t0 = time.perf_counter()
+    err_sizes = _size_repairs(frames, xis, log)
+    _sync()
+    log(f"phase 19 took {time.perf_counter() - t0:.1f} s")
+    max_abs_robust = max(max_abs_robust, err_sizes["solve_level_fused_robust"])
+    err_new["fused_level_sample"] = max(err_new["fused_level_sample"], err_sizes["fused_level_sample"])
+    for name, n in launches_pipe.items():
+        if name in launches_new:
+            launches_new[name] += n
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     # ms and bound_ms: one launch at each of the 3 levels, summed
@@ -1718,7 +2110,7 @@ def main() -> int:
         "route": "cuda",
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:533",
-        "launches": launches_pairs[0] + launches_odo["odometry"],
+        "launches": launches_pairs[0] + launches_odo["odometry"] + launches_pipe["solve_level_fused"],
         "max_abs_err": max_abs,
         "ms": sum(ms_k.values()),
         "plain_ms": sum(ms_p.values()),
@@ -1730,7 +2122,8 @@ def main() -> int:
         "route": "cuda",
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:520",
-        "launches": launches_track[1] + launches_odo["robust"] + robust_vlog,
+        "launches": launches_track[1] + launches_odo["robust"] + robust_vlog
+        + launches_pipe["solve_level_fused_robust"],
         "max_abs_err": max_abs_robust,
         "ms": sum(ms_k_robust.values()),
         "plain_ms": sum(ms_p_robust.values()),

@@ -197,29 +197,70 @@ def test_kernel_with_an_empty_mask_equals_plain(device, loss):
     assert not bool(out_k[1].valid.any())
 
 
-def test_robust_wrapper_raises_where_the_residual_cache_does_not_fit(device):
-    """A frame of 2^20 points needs more shared memory per block than the
-    card has for the robust entry's residual cache: the wrapper raises and
-    launches nothing (the quadratic entry, which keeps no cache, runs)."""
+@pytest.mark.parametrize("function", ["Huber", "Tukey", "tdistribution"])
+def test_robust_kernel_with_the_residual_cache_in_global_memory_equals_plain(device, function):
+    """A frame of 2^20 points: a block's share of its residual cache does
+    not fit in shared memory, so the robust entry keeps the cache in a
+    global scratch buffer. It solves, bit for bit against the plain version,
+    as the quadratic entry (which keeps no cache) does."""
+    import ctypes
+
+    from vslam_tpu_torch import _build
+
     B, F, P = 1, 1, 1 << 20
+    need, limit = ctypes.c_int(0), ctypes.c_int(0)
+    assert _build.library().vslam_solve_level_smem(F, P, 1, ctypes.byref(need), ctypes.byref(limit)) == 0
+    assert need.value > limit.value  # the shared cache does not fit
     g = torch.Generator(device=device).manual_seed(0)
     data = ic.ICLevelData(
         pcl=torch.rand(B, F, P, 3, device=device, generator=g) + torch.tensor([0.0, 0.0, 1.0], device=device),
         J=torch.randn(B, F, P, 6, device=device, generator=g),
         templ=torch.rand(B, F, P, device=device, generator=g) * 255,
-        mask=torch.ones(B, F, P, dtype=torch.bool, device=device),
-        n_constraints=torch.full((B, F), float(P), device=device))
+        mask=torch.rand(B, F, P, device=device, generator=g) < 0.9,
+        n_constraints=torch.zeros(B, F, device=device))
+    data = data._replace(n_constraints=data.mask.sum(-1).float())
     rel0 = SE3(torch.eye(3, device=device).expand(B, F, 3, 3).contiguous(), torch.zeros(B, F, 3, device=device))
     cam = Camera(*(torch.full((B,), v, device=device) for v in (10.0, 10.0, 7.5, 5.5)))
     img = torch.rand(B, 12, 16, device=device, generator=g) * 255
     before = (fused_solve.LAUNCHES, fused_solve.ROBUST_LAUNCHES)
-    cfg = ic.AlignmentConfig(sampler="fused_gn", loss=LossConfig("Huber"), solver=SolverConfig(2))
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_solve.solve_level_fused(data, rel0, img, cam, cfg, None)
-    assert (fused_solve.LAUNCHES, fused_solve.ROBUST_LAUNCHES) == before
+    cfg = ic.AlignmentConfig(sampler="fused_gn", loss=LossConfig(function),
+                             solver=SolverConfig(4, 1e-11, min_relative_reduction=1e-4))
+    out_k = fused_solve.solve_level_fused(data, rel0, img, cam, cfg, None)
+    out_p = fused_solve.solve_level_fused_plain(data, rel0, img, cam, cfg, None)
+    torch.cuda.synchronize()
+    assert (fused_solve.LAUNCHES, fused_solve.ROBUST_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert int(out_k[1].iterations.max()) >= 1
+    _assert_solves_equal(out_k, out_p)
     fused_solve.solve_level_fused(data, rel0, img, cam, dataclasses.replace(cfg, loss=LossConfig()), None)
     torch.cuda.synchronize()
-    assert fused_solve.LAUNCHES == before[0] + 1
+    assert fused_solve.LAUNCHES == before[0] + 2
+
+
+def test_sampler_takes_more_rows_than_the_grid_y_extent(device):
+    """B x F = 70,000 (pair, frame) rows of 8 points at 12x16, above the
+    65,535 rows of one grid's y extent: bit for bit against the plain
+    version."""
+    B, F, P, Hi, Wi = 35000, 2, 8, 12, 16
+    g = torch.Generator(device=device).manual_seed(3)
+    z = 1.0 + torch.rand(B, F, P, 1, device=device, generator=g)
+    xy = (torch.rand(B, F, P, 2, device=device, generator=g) - 0.5) * z
+    mask = torch.rand(B, F, P, device=device, generator=g) < 0.9
+    data = ic.ICLevelData(pcl=torch.cat([xy, z], dim=-1).contiguous(), J=torch.zeros(B, F, P, 6, device=device),
+                          templ=torch.zeros(B, F, P, device=device), mask=mask,
+                          n_constraints=mask.sum(-1).float())
+    rel = SE3(torch.eye(3, device=device).expand(B, F, 3, 3).contiguous(),
+              torch.full((B, F, 3), 0.01, device=device))
+    cam = Camera(*(torch.full((B,), v, device=device) for v in (10.0, 10.0, (Wi - 1) / 2, (Hi - 1) / 2)))
+    img = torch.rand(B, Hi, Wi, device=device, generator=g) * 255
+    before = fused_ne.SAMPLE_LAUNCHES
+    got = fused_ne.fused_level_sample(data, rel, img, cam, "bilinear")
+    want = fused_ne.fused_level_sample_plain(data, rel, img, cam, "bilinear")
+    torch.cuda.synchronize()
+    assert fused_ne.SAMPLE_LAUNCHES == before + 1
+    assert 0.3 < got[1].float().mean().item() < 1.0
+    assert bool(got[1][-1].any())  # the last rows were sampled too
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("F", [1, 2])
@@ -492,3 +533,91 @@ def test_align_pairs_per_iteration_samplers_launch_every_iteration(device):
         T[:3, :3] = rel.R[0].double().cpu().numpy()
         T[:3, 3] = rel.t[0].double().cpu().numpy()
         assert bool(valid[0]) and np.linalg.norm(lie_np.log(T) - xi) < 0.01
+
+
+def _pipeline_stream(n, seed=5):
+    """n frames of a smooth trajectory on the plane scene at H x W, in the
+    sensor dtypes (uint8 intensity, uint16 depth at 1/5000 m)."""
+    K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    poses = synthetic.smooth_trajectory(n, trans_amp=0.08, rot_amp=0.03, seed=seed)
+    p0i = lie_np.inv(poses[0])
+    poses = [p @ p0i for p in poses]
+    items = []
+    for i, p in enumerate(poses):
+        inten, depth = synthetic.render(K, p, (H, W))
+        items.append((i * int(1e9 / 30), np.clip(np.round(inten), 0, 255).astype(np.uint8),
+                      np.clip(np.round(depth * 5000.0), 0, 65535).astype(np.uint16)))
+    return poses, items
+
+
+def _pose_gap(a, b):
+    return float(np.linalg.norm(lie_np.log(lie_np.relative(a, b))))
+
+
+@pytest.mark.parametrize("sampler,loss", [("gather", "None"), ("fused_gn", "None"), ("fused_gn", "Huber")])
+def test_align_build_on_the_card_equals_the_plain_versions_on_the_cpu(device, sampler, loss):
+    """RgbdAligner.align_build (frame build, precompute and the cached
+    two-reference solve) on CUDA against the same call on CPU tensors, where
+    every kernel wrapper takes its plain version: the tolerance of
+    tests/test_torch_align.py's `align` parity (pose 1e-3, covariance
+    rtol 1e-2)."""
+    from vslam_tpu_torch.alignment.aligner import RgbdAligner, build_frame
+
+    poses, items = _pipeline_stream(3)
+    cfg = ic.AlignmentConfig(min_gradient=10.0, sampler=sampler, max_points=2048, loss=LossConfig(loss),
+                             image_dtype="bfloat16" if sampler == "fused_gn" else "float32",
+                             solver=SolverConfig(50, 1e-11, min_relative_reduction=1e-4))
+    pred = lie_np.exp(lie_np.log(lie_np.relative(poses[0], poses[1]))) @ poses[1]
+    out = []
+    for dev in (device, torch.device("cpu")):
+        cam = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2, device=dev)
+        refs = [build_frame(i, d, cam, cfg, 3, 1 / 5000)[1] for _, i, d in items[:2]]
+        _, i2, d2 = items[2]
+        before = fused_solve.LAUNCHES
+        out.append(RgbdAligner(cfg).align_build(i2, d2, cam, 3, refs, poses[:2], pred, depth_scale=1 / 5000))
+        assert fused_solve.LAUNCHES - before == (3 if sampler == "fused_gn" and dev.type == "cuda" else 0)
+    (_, _, pose_k, cov_k, ok_k), (_, _, pose_p, cov_p, ok_p) = out
+    assert ok_k and ok_p
+    assert _pose_gap(pose_k, pose_p) < 1e-3
+    assert _pose_gap(pose_k, poses[2]) < 0.02
+    np.testing.assert_allclose(cov_k, cov_p, rtol=1e-2, atol=1e-6 * np.abs(cov_p).max())
+
+
+def test_pipelined_run_never_waits_for_the_card_while_it_queues(device, monkeypatch):
+    """The software-pipelined loop queues every frame's whole update
+    (`pipeline._chain_step`) with no synchronizing CUDA call inside it: torch's
+    sync debug mode raises on one, as it does on a `.item()` below. The host
+    waits only when it retires a batch of frames, and the trajectory is the
+    strict loop's within 2e-3."""
+    from vslam_tpu_torch.config import PipelineConfig
+    from vslam_tpu_torch.odometry import pipeline
+
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            torch.ones(1, device=device).item()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    chain_step, steps = pipeline._chain_step, []
+
+    def no_wait(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = chain_step(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        steps.append(out)
+        return out
+
+    monkeypatch.setattr(pipeline, "_chain_step", no_wait)
+    _, items = _pipeline_stream(10)
+    cfg = PipelineConfig(features_min_gradient=10.0, solver_max_iterations=50, solver_min_step_size=1e-7,
+                         sampler="fused_gn", image_dtype="bfloat16", features_max_points=2048)
+    cam = Camera(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    before = fused_solve.LAUNCHES
+    traj = pipeline.OdometryPipeline(cam, cfg).run(iter(items))
+    assert len(steps) == len(items) - 1 and fused_solve.LAUNCHES - before == 3 * (len(items) - 1)
+    monkeypatch.setattr(pipeline, "_chain_step", chain_step)
+    strict = pipeline.OdometryPipeline(cam, cfg).run(iter(items), pipelined=False)
+    for (t, a), (_, b) in zip(traj.items(), strict.items()):
+        assert _pose_gap(a, b) < 2e-3, t

@@ -25,7 +25,10 @@ from vslam_tpu_torch.alignment.ic import ICLevelData
 from vslam_tpu_torch.core import se3
 from vslam_tpu_torch.core.camera import Camera
 from vslam_tpu_torch.core.se3 import SE3
+from vslam_tpu_torch.eval import evaluate
 from vslam_tpu_torch.kalman import ekf_se3
+from vslam_tpu_torch.config import PipelineConfig
+from vslam_tpu_torch.odometry.pipeline import OdometryPipeline
 from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry, stage_stream
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -50,7 +53,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30  # the slices' modules
+    assert int(out.stdout.split()[-1]) >= 47  # the slices' modules, the host pipeline's and the CLI's among them
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -150,6 +153,16 @@ _NP_FRAME = types.SimpleNamespace(intensity=[np.zeros((4, 6))], depth=[np.ones((
 _NP_EKF = types.SimpleNamespace(pose=_NP_POSE, velocity=np.zeros(6), P=np.eye(12), Q=np.eye(12))
 
 
+def _cli_device() -> str:
+    """The CLI's ``--device`` when none is given, the same on every command
+    that tracks."""
+    ap = evaluate.parser()
+    devices = {ap.parse_args(argv).device for argv in (["synthetic"], ["odometry", "--dataset", "d"],
+                                                       ["reproduce", "--dataset", "d"])}
+    (device,) = devices
+    return device
+
+
 @pytest.mark.parametrize(
     "make",
     [
@@ -164,10 +177,13 @@ _NP_EKF = types.SimpleNamespace(pose=_NP_POSE, velocity=np.zeros(6), P=np.eye(12
         lambda: interop.level_data_from_numpy(_NP_LEVEL).pcl,
         lambda: interop.level_data_tuple_from_numpy([_NP_LEVEL])[0].J,
         lambda: interop.ekf_state_from_numpy(_NP_EKF).P,
+        lambda: OdometryPipeline(Camera(1.0, 1.0, 0.0, 0.0)).camera.fx,
+        lambda: Camera.create(1.0, 1.0, 0.0, 0.0, device=_cli_device()).fx,
     ],
     ids=["Camera.create", "se3.identity", "ekf_se3.init", "stage_stream", "interop.camera_from_numpy",
          "interop.se3_from_numpy", "interop.frame_from_numpy", "interop.level_data_from_numpy",
-         "interop.level_data_tuple_from_numpy", "interop.ekf_state_from_numpy"],
+         "interop.level_data_tuple_from_numpy", "interop.ekf_state_from_numpy", "OdometryPipeline",
+         "evaluate --device"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device named, an entry point puts its tensors on CUDA, and
@@ -191,6 +207,22 @@ def test_unported_sequential_options_raise(kwargs, cfg, what):
     cam = Camera.create(100.0, 100.0, 31.5, 23.5, device="cpu")
     with pytest.raises(NotImplementedError, match=what):
         SequentialOdometry(cam, cfg, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "cfg,module",
+    [
+        (PipelineConfig(enable_mapping=True), "features/ and ba/"),
+        (PipelineConfig(enable_loop_closure=True), "odometry/graph_backend.py"),
+        (PipelineConfig(live_viz_port=0), "viz/live.py"),
+    ],
+    ids=["enable_mapping", "enable_loop_closure", "live_viz_port"],
+)
+def test_unported_pipeline_options_raise(cfg, module):
+    """The pipeline refuses at construction what waits for an unported
+    module, and names that module."""
+    with pytest.raises(NotImplementedError, match=module):
+        OdometryPipeline(Camera(100.0, 100.0, 31.5, 23.5), cfg, device="cpu")
 
 
 def test_chip_smoke_result_line_keeps_the_contract():

@@ -1,11 +1,18 @@
 """vslam_tpu_torch — the PyTorch / CUDA port of `vslam_tpu` for one NVIDIA H100.
 
 The package mirrors the `vslam_tpu/` layout module for module. Plain tensor
-code is PyTorch; the whole-level Gauss-Newton solve, a Pallas kernel in the
-JAX package, is a hand-written CUDA kernel (`csrc/fused_solve.cu`) built with
-nvcc at first use. The JAX package stays the reference: every ported function
-is tested against the function it replaces. This package imports neither
-`jax` nor `vslam_tpu`.
+code is PyTorch; each Pallas kernel of the JAX package is a hand-written
+CUDA kernel in one of three sources, built with nvcc at first use:
+`csrc/fused_solve.cu` (the whole-level Gauss-Newton solve, quadratic and
+robust entries), `csrc/fused_ne.cu` (the per-iteration sampler and normal
+equations) and `csrc/sample_mxu.cu` (the `mxu` sampler). The JAX package
+stays the reference: every ported function is tested against the function
+it replaces. This package imports neither `jax` nor `vslam_tpu`.
+
+The entry points run on CUDA unless the caller names another device: the
+sequential scan (`odometry.sequential.SequentialOdometry`), the per-frame
+pipeline (`odometry.pipeline.OdometryPipeline`) and the evaluation CLI,
+`python -m vslam_tpu_torch.eval.evaluate` (``--device``).
 """
 
 __version__ = "0.1.0"

@@ -47,13 +47,15 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # include_prior, prior_weight, max_iterations, min_step_size, min_gradient,
 # min_reduction, min_relative_reduction, use_min_rel, orthonormalize, out,
 # chi2_hist, step_hist, stream); the robust entry adds loss_kind,
-# scaler_kind, huber_c, tdist_v before out
+# scaler_kind, huber_c, tdist_v, cache_r, cache_vis before out
 _COMMON = [_VP] * 10 + [_I] * 8 + [_F, _I] + [_F] * 4 + [_I, _I]
 _SIGNATURES = {
     "vslam_solve_level_fused": _COMMON + [_VP] * 4,
-    "vslam_solve_level_fused_robust": _COMMON + [_I, _I, _F, _F] + [_VP] * 4,
+    "vslam_solve_level_fused_robust": _COMMON + [_I, _I, _F, _F] + [_VP] * 6,
     # (F, P, robust, need, limit)
     "vslam_solve_level_smem": [_I] * 3 + [_VP] * 2,
+    # (F, P, points, need)
+    "vslam_solve_level_global_cache": [_I] * 2 + [_VP] * 2,
     # (B, F, P, robust, image_is_bf16, bilinear, clusters)
     "vslam_solve_level_clusters": [_I] * 6 + [_VP],
     # (pcl, mask, rel_R, rel_t, cam, image, image_is_bf16, B, F, P, H, W,

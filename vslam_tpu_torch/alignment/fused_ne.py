@@ -128,8 +128,6 @@ def _launch_sample(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolati
     from .._build import library
 
     tensors, sizes, (B, F, P) = _level_args(data, rel, image, cam, with_ne=False)
-    if B * F > 65535:  # the kernel's grid has one row of blocks per (pair, frame)
-        raise ValueError(f"fused_level_sample takes at most 65535 (pair, frame) rows, got B={B} F={F}")
     dev = data.pcl.device
     iwxp = torch.empty(B, F, P, dtype=torch.float32, device=dev)
     visible = torch.empty(B, F, P, dtype=torch.bool, device=dev)
@@ -163,9 +161,8 @@ def _launch_ne(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation, 
 
 def fused_level_sample(data, rel: SE3, image: torch.Tensor, cam: Camera, interpolation="bilinear"):
     """Warped intensities and visibility of every point: one kernel launch
-    for all B x F x P points, B x F at most 65535 (CUDA tensors), or the
-    plain version (CPU tensors). Returns (iwxp (B, F, P) f32, visible
-    (B, F, P) bool)."""
+    for all B x F x P points (CUDA tensors), or the plain version (CPU
+    tensors). Returns (iwxp (B, F, P) f32, visible (B, F, P) bool)."""
     if data.pcl.device.type == "cpu":
         return fused_level_sample_plain(data, rel, image, cam, interpolation)
     return _launch_sample(data, rel, image, cam, interpolation)

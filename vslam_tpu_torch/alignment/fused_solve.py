@@ -8,7 +8,9 @@ that pair's whole GN loop (warp, project, sample, JᵀWJ / JᵀWr / chi2,
 normalization, prior, 6x6 Cholesky, guards, compositional update, history)
 and exits at its own convergence; each block takes a fixed contiguous share
 of every frame's points. With a robust loss each iteration first caches r
-and the visibility in shared memory, computes the residual scale from the
+and the visibility (in shared memory where a block's share of every frame
+fits there, else in a global scratch buffer that the wrapper allocates, so
+any size the JAX entry solves is solved), computes the residual scale from the
 cache (median / MAD by an exact radix select of the two central ranks and a
 replay of the reference's value bisection, mean, or the t-distribution
 fixed point) and then runs the weighted Gram pass. The kernel is
@@ -486,10 +488,10 @@ def _checked(name: str, x: torch.Tensor, shape, dtype) -> torch.Tensor:
 
 def _launch(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_pred, lib=None):
     """Validate, allocate with torch.empty and launch on the current stream:
-    the quadratic entry for loss "None", else the robust entry, which raises
-    where a block's share of a frame does not fit its residual cache in
-    shared memory. ``lib`` is the kernel library (default: the package's
-    build)."""
+    the quadratic entry for loss "None", else the robust entry, given a
+    global residual cache where the blocks' shares of the frames do not fit
+    theirs in shared memory. ``lib`` is the kernel library (default: the
+    package's build)."""
     global LAUNCHES, ROBUST_LAUNCHES
     from .._build import library
 
@@ -546,17 +548,25 @@ def _launch(data, rel0: SE3, image_cur, cam_cur: Camera, cfg, x_pred, lib=None):
             ctypes.c_float(cfg.loss.huber_c),
             ctypes.c_float(cfg.loss.tdistribution_v),
         ]
-    ptrs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a
-            for a in args + scalars + [out, chist, shist]]
     lib = library() if lib is None else lib
     with torch.cuda.device(dev):
         need, limit = ctypes.c_int(0), ctypes.c_int(0)
         err = lib.vslam_solve_level_smem(F, P, int(robust), ctypes.byref(need), ctypes.byref(limit))
         if err != 0:
             raise RuntimeError(f"fused_solve kernel: shared-memory query failed: CUDA error {err}")
+        cache = []
+        if robust:
+            cache = [None, None]  # the residual cache fits in shared memory
+            if need.value > limit.value:
+                points = ctypes.c_int(0)
+                lib.vslam_solve_level_global_cache(F, P, ctypes.byref(points), ctypes.byref(need))
+                cache = [torch.empty(B * points.value, dtype=f32, device=dev),
+                         torch.empty(B * points.value, dtype=torch.uint8, device=dev)]
         if need.value > limit.value:
             raise ValueError(f"fused_solve kernel: F={F} frames of P={P} points need {need.value} B of "
                              f"shared memory per block, above the card's {limit.value} B")
+        ptrs = [ctypes.c_void_p(None if a is None else a.data_ptr()) if not isinstance(a, ctypes._SimpleCData)
+                else a for a in args + scalars + cache + [out, chist, shist]]
         stream = torch.cuda.current_stream(dev).cuda_stream
         entry = lib.vslam_solve_level_fused_robust if robust else lib.vslam_solve_level_fused
         err = entry(*ptrs, ctypes.c_void_p(stream))

@@ -22,7 +22,7 @@ from . import se3
 from .camera import Camera
 from .se3 import SE3
 
-__all__ = ["Frame", "create_frame", "sensor_to_f32"]
+__all__ = ["Frame", "create_frame", "frame_pcl", "num_levels", "sensor_to_f32"]
 
 
 def sensor_to_f32(intensity: torch.Tensor, depth: torch.Tensor, depth_scale: float = 1.0):
@@ -47,6 +47,16 @@ class Frame(NamedTuple):
     @property
     def n_levels(self) -> int:
         return len(self.intensity)
+
+    def width(self, level: int = 0) -> int:
+        return self.intensity[level].shape[-1]
+
+    def height(self, level: int = 0) -> int:
+        return self.intensity[level].shape[-2]
+
+
+def num_levels(frame: Frame) -> int:
+    return len(frame.intensity)
 
 
 def create_frame(
@@ -95,3 +105,18 @@ def create_frame(
         cameras=tuple(cams),
         pose=pose,
     )
+
+
+def frame_pcl(frame: Frame, level: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense camera-frame point cloud of a pyramid level: (points (..., H,
+    W, 3), valid (..., H, W)); invalid pixels get the zero point, as
+    reference `Frame::computePcl` (`Frame.cpp:233-253`)."""
+    d = frame.depth[level]
+    H, W = d.shape[-2:]
+    valid = torch.isfinite(d) & (d > 0.0)
+    ys = torch.arange(H, dtype=d.dtype, device=d.device)[:, None].expand(H, W)
+    xs = torch.arange(W, dtype=d.dtype, device=d.device)[None, :].expand(H, W)
+    uv = torch.stack([xs, ys], dim=-1).expand(*d.shape, 2)
+    cam = cam_mod.expand(frame.cameras[level], d.dim())
+    pts = cam_mod.backproject(cam, uv, torch.where(valid, d, torch.zeros_like(d)))
+    return torch.where(valid[..., None], pts, torch.zeros_like(pts)), valid

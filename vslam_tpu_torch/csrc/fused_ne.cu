@@ -47,6 +47,8 @@
 // - Sampler: a 2-D grid, blockIdx.y the (pair, frame) and blockIdx.x a chunk
 //   of kSampleThreads x kSamplePts points, so no thread divides to find its
 //   frame, and the pose and camera are one cache line for the whole block.
+//   Above 65535 (pair, frame) rows, the y extent's limit, a block also
+//   takes the rows 65535 apart.
 //   A thread takes kSamplePts consecutive points (one, the sweep's choice;
 //   with more, their pcl, mask, samples and visibility move as 16-, 8- or
 //   4-byte vectors where the addresses allow).
@@ -162,12 +164,10 @@ __device__ __forceinline__ void store_vec(T* dst, const T (&v)[N]) {
   store_chunks<T>(dst, v);
 }
 
+// A thread's kSamplePts points from q0 of the (pair, frame) row bf.
 template <bool BILINEAR, typename TImg>
-__global__ void __launch_bounds__(kSampleThreads) sample_level_kernel(const LevelParams p, float* iwxp,
-                                                                      unsigned char* visible) {
-  const int q0 = (blockIdx.x * kSampleThreads + threadIdx.x) * kSamplePts;
-  if (q0 >= p.P) return;
-  const size_t bf = blockIdx.y;
+__device__ __forceinline__ void sample_row(const LevelParams& p, size_t bf, int q0, float* iwxp,
+                                           unsigned char* visible) {
   const int b = (int)(bf / p.F);
   const Pose T = load_pose(p, bf);
   const Intrinsics K = load_cam(p, b);
@@ -208,6 +208,17 @@ __global__ void __launch_bounds__(kSampleThreads) sample_level_kernel(const Leve
         visible[i0 + j] = vis[j];
       }
   }
+}
+
+template <bool BILINEAR, typename TImg>
+__global__ void __launch_bounds__(kSampleThreads) sample_level_kernel(const LevelParams p, float* iwxp,
+                                                                      unsigned char* visible) {
+  const int q0 = (blockIdx.x * kSampleThreads + threadIdx.x) * kSamplePts;
+  if (q0 >= p.P) return;
+  // a row of blocks per (pair, frame); where B x F exceeds the grid's y
+  // extent, each row of blocks also takes the rows gridDim.y apart
+  for (size_t bf = blockIdx.y; bf < (size_t)p.B * p.F; bf += gridDim.y)
+    sample_row<BILINEAR, TImg>(p, bf, q0, iwxp, visible);
 }
 
 // Add one point's Gram terms (weight 1) where it is visible; an invisible
@@ -321,7 +332,9 @@ __global__ void __launch_bounds__(kThreads) level_ne_kernel(const LevelParams p,
 template <bool BILINEAR, typename TImg>
 int launch_sample(const LevelParams& p, float* iwxp, unsigned char* visible, cudaStream_t stream) {
   constexpr int chunk = kSampleThreads * kSamplePts;
-  const dim3 grid((unsigned)((p.P + chunk - 1) / chunk), (unsigned)(p.B * p.F));
+  constexpr int kMaxGridY = 65535;
+  const int rows = p.B * p.F;
+  const dim3 grid((unsigned)((p.P + chunk - 1) / chunk), (unsigned)(rows < kMaxGridY ? rows : kMaxGridY));
   sample_level_kernel<BILINEAR, TImg><<<grid, kSampleThreads, 0, stream>>>(p, iwxp, visible);
   return (int)cudaGetLastError();
 }
@@ -385,8 +398,7 @@ LevelParams make_level_params(const void* pcl, const void* J, const void* templ,
 // C entries for ctypes. Each launches on `stream` without synchronizing and
 // returns the launch's error or cudaGetLastError() (0 = cudaSuccess).
 
-// iwxp (B, F, P) f32 and visible (B, F, P) bool; B x F at most 65535 (the
-// grid's y extent).
+// iwxp (B, F, P) f32 and visible (B, F, P) bool.
 extern "C" int vslam_fused_level_sample(const void* pcl, const void* mask, const void* rel_R,
                                         const void* rel_t, const void* cam, const void* image,
                                         int image_is_bf16, int B, int F, int P, int H, int W,

@@ -44,8 +44,11 @@
 //   bit). The prior's log series of each frame runs on a lane of the last
 //   warp while the others sample, off the tail's path.
 // - Robust entry: each iteration caches every frame's r (0 where invisible)
-//   and visibility in shared memory (sized from F and P by the wrapper,
-//   which raises above what fits), then takes the scales from that cache,
+//   and visibility in shared memory where a CTA's share of every frame fits
+//   there (5 B a point: up to ~180 K points a pair summed over frames), and
+//   otherwise in a global scratch buffer that the wrapper allocates, one
+//   region per CTA, read and written in the same order (each thread only
+//   touches the entries it writes itself), then takes the scales from it,
 //   all stacked frames sharing each cluster exchange. The median's two
 //   ranks k_lo = floor((n-1)/2), k_hi = floor(n/2) are found by an exact
 //   radix select over order-preserving uint32 keys (8-bit digits, 256-bin
@@ -106,6 +109,11 @@ struct SolveParams {
   int loss_kind;    // 1 Huber, 2 Tukey, 3 t-distribution
   int scaler_kind;  // Huber / Tukey: 0 reference (median), 1 MAD, 2 mean
   float huber_c, tdist_v;
+  // the residual cache in global memory, (B, kCtas, F, S), where the shared
+  // one does not fit (cache_global, set at launch); else unused
+  float* cache_r;
+  unsigned char* cache_vis;
+  int cache_global;
   float* out;        // (B, kOut)
   float* chi2_hist;  // (B, max_iterations)
   float* step_hist;  // (B, max_iterations)
@@ -758,14 +766,14 @@ __host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) &
 // Byte offsets into a CTA's dynamic shared memory: the Gram exchange (two
 // slots of F x kGram CTA partials), the per-warp Gram partials, the prior's
 // log per frame; for the robust entry the exchange ring, the per-frame
-// scale state and sum partials and the cache of every frame's share (r,
-// visibility); and, when staged, the level data of the share (pcl, J,
-// template, mask).
+// scale state and sum partials and, unless it lives in global memory
+// (``global_cache``), the cache of every frame's share (r, visibility); and,
+// when staged, the level data of the share (pcl, J, template, mask).
 struct Layout {
   size_t gram, warp, xlog, fconst, ring, fs, wsum, r, vis, pcl, J, templ, mask, unstaged, staged;
 };
 
-__host__ __device__ inline Layout make_layout(int F, int S, bool robust) {
+__host__ __device__ inline Layout make_layout(int F, int S, bool robust, bool global_cache) {
   Layout L;
   size_t o = 0;
   L.gram = o;
@@ -776,7 +784,7 @@ __host__ __device__ inline Layout make_layout(int F, int S, bool robust) {
   o = align16(o + sizeof(float) * F * 6);
   L.fconst = o;
   o = align16(o + sizeof(float) * F * kFrameConst);
-  const size_t FS = robust ? (size_t)F * S : 0, Fr = robust ? F : 0;
+  const size_t FS = robust && !global_cache ? (size_t)F * S : 0, Fr = robust ? F : 0;
   L.ring = o;
   o = align16(o + sizeof(FrameSlot) * 3 * Fr);
   L.fs = o;
@@ -847,14 +855,16 @@ __global__ void __launch_bounds__(kThreads) solve_level_kernel(const SolveParams
   const int F = p.F;
   const int first = rank * p.share;
   const int n_share = max(0, min(p.share, p.P - first));
-  const Layout lay = make_layout(F, p.share, ROBUST);
+  const Layout lay = make_layout(F, p.share, ROBUST, p.cache_global != 0);
   float* gram_x = reinterpret_cast<float*>(s_dyn + lay.gram);    // [2][F][kGram]
   float* gram_w = reinterpret_cast<float*>(s_dyn + lay.warp);    // [F][kWarps][kGram]
   float* xlog = reinterpret_cast<float*>(s_dyn + lay.xlog);      // [F][6]
   float* fconst = reinterpret_cast<float*>(s_dyn + lay.fconst);  // [F][kFrameConst]
+  const size_t cache_at = ((size_t)pair * kCtas + rank) * F * p.share;  // this CTA's [F][S] region
   Robust R = {reinterpret_cast<FrameSlot*>(s_dyn + lay.ring), reinterpret_cast<FrameScale*>(s_dyn + lay.fs),
-              reinterpret_cast<float*>(s_dyn + lay.wsum), reinterpret_cast<float*>(s_dyn + lay.r),
-              s_dyn + lay.vis, F, p.share, 0};
+              reinterpret_cast<float*>(s_dyn + lay.wsum),
+              p.cache_global ? p.cache_r + cache_at : reinterpret_cast<float*>(s_dyn + lay.r),
+              p.cache_global ? p.cache_vis + cache_at : s_dyn + lay.vis, F, p.share, 0};
 
   const TImg* img = static_cast<const TImg*>(p.image) + (size_t)pair * p.H * p.W;
   const Intrinsics K = {p.cam[4 * pair], p.cam[4 * pair + 1], p.cam[4 * pair + 2],
@@ -1156,7 +1166,12 @@ int launch(SolveParams p, cudaStream_t stream, int* clusters) {
   const int err = dynamic_smem_limit(kernel, &limit);
   if (err != 0) return err;
   p.share = share_of(p.P);
-  const Layout lay = make_layout(p.F, p.share, ROBUST);
+  // the robust residual cache stays in shared memory wherever it fits
+  const bool global_cache = ROBUST && make_layout(p.F, p.share, true, false).unstaged > (size_t)limit;
+  if (global_cache && !clusters && (!p.cache_r || !p.cache_vis))
+    return (int)cudaErrorInvalidValue;  // the wrapper allocates the global cache
+  p.cache_global = global_cache;
+  const Layout lay = make_layout(p.F, p.share, ROBUST, global_cache);
   if (lay.unstaged > (size_t)limit) return (int)cudaErrorInvalidValue;  // the wrapper raises first
   p.stage = lay.staged <= (size_t)limit;
   const size_t smem = p.stage ? lay.staged : lay.unstaged;
@@ -1251,7 +1266,9 @@ extern "C" int vslam_solve_level_fused(
 }
 
 // The robust entry: loss_kind 1 Huber, 2 Tukey, 3 t-distribution;
-// scaler_kind 0 reference, 1 MAD, 2 mean.
+// scaler_kind 0 reference, 1 MAD, 2 mean. cache_r (float) and cache_vis
+// (byte), B x `vslam_solve_level_global_cache` points each, hold the
+// residual cache where it does not fit in shared memory; null elsewhere.
 extern "C" int vslam_solve_level_fused_robust(
     const void* pcl, const void* J, const void* templ, const void* mask,
     const void* n_constraints, const void* rel0_R, const void* rel0_t, const void* x_pred,
@@ -1259,7 +1276,8 @@ extern "C" int vslam_solve_level_fused_robust(
     int bilinear, int include_prior, float prior_weight, int max_iterations,
     float min_step_size, float min_gradient, float min_reduction, float min_relative_reduction,
     int use_min_rel, int orthonormalize, int loss_kind, int scaler_kind, float huber_c,
-    float tdist_v, void* out, void* chi2_hist, void* step_hist, void* stream) {
+    float tdist_v, void* cache_r, void* cache_vis, void* out, void* chi2_hist, void* step_hist,
+    void* stream) {
   vslam::SolveParams p = vslam::make_params(
       pcl, J, templ, mask, n_constraints, rel0_R, rel0_t, x_pred, cam, image, B, F, P, H, W,
       include_prior, prior_weight, max_iterations, min_step_size, min_gradient, min_reduction,
@@ -1268,18 +1286,31 @@ extern "C" int vslam_solve_level_fused_robust(
   p.scaler_kind = scaler_kind;
   p.huber_c = huber_c;
   p.tdist_v = tdist_v;
+  p.cache_r = static_cast<float*>(cache_r);
+  p.cache_vis = static_cast<unsigned char*>(cache_vis);
   return vslam::launch_checked<true>(p, image_is_bf16, bilinear, stream);
 }
 
 // The shared memory one CTA of the kernel needs at (F, P) without staging
-// the level data (``need``) and what the card lets it take (``limit``),
-// both in bytes; returns a CUDA error code. The wrapper raises where
-// need > limit (the robust entry's residual cache does not fit).
+// the level data (``need``), with the robust entry's residual cache in it,
+// and what the card lets it take (``limit``), both in bytes; returns a CUDA
+// error code. Where need > limit the robust entry keeps its cache in global
+// memory (`vslam_solve_level_global_cache`).
 extern "C" int vslam_solve_level_smem(int F, int P, int robust, int* need, int* limit) {
-  const vslam::Layout lay = vslam::make_layout(F, vslam::share_of(P), robust != 0);
+  const vslam::Layout lay = vslam::make_layout(F, vslam::share_of(P), robust != 0, false);
   *need = (int)lay.unstaged;
   return robust ? vslam::dynamic_smem_limit(vslam::solve_level_kernel<float, false, true>, limit)
                 : vslam::dynamic_smem_limit(vslam::solve_level_kernel<float, false, false>, limit);
+}
+
+// The robust entry's residual cache in global memory at (F, P): its entries
+// per pair (``points``, kCtas CTA shares of every frame) and the shared
+// memory a CTA then needs without staging (``need``, bytes).
+extern "C" int vslam_solve_level_global_cache(int F, int P, int* points, int* need) {
+  const int share = vslam::share_of(P);
+  *points = vslam::kCtas * F * share;
+  *need = (int)vslam::make_layout(F, share, true, true).unstaged;
+  return 0;
 }
 
 // The most clusters of the launch at (B, F, P) the card holds at once

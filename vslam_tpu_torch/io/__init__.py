@@ -1,4 +1,6 @@
-"""Synthetic data (port of `vslam_tpu.io`; the dataset loaders come later)."""
+"""Dataset IO and synthetic data (port of `vslam_tpu.io`: the synthetic
+scenes, the TUM reader `io.tum` and the native PNG loader
+`io.native_loader`)."""
 
 from . import synthetic
 

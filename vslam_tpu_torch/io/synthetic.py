@@ -1,8 +1,8 @@
 """Synthetic RGB-D scene rendering for tests and benchmarks (numpy).
 
 A copy of the numpy half of `vslam_tpu.io.synthetic` (the plane and box
-scenes, the orbit and smooth trajectories): the port must run where JAX is
-not installed. Analytic scenes give exact intensity and depth for any camera
+scenes, the orbit and smooth trajectories, the Kinect-like sensor model):
+the port must run where JAX is not installed. Analytic scenes give exact intensity and depth for any camera
 pose, so ground-truth alignment and odometry checks need no dataset files.
 The device-batched `render_boxes_batch` is not ported yet.
 
@@ -29,6 +29,8 @@ __all__ = [
     "camera_matrix",
     "orbit_trajectory",
     "smooth_trajectory",
+    "SensorModel",
+    "degrade",
 ]
 
 
@@ -236,3 +238,60 @@ def smooth_trajectory(
         xi[3:] = rot_amp * np.sin(w_r * t + ph[3:])
         poses.append(lie_np.exp(xi))
     return poses
+
+
+@dataclasses.dataclass(frozen=True)
+class SensorModel:
+    """Kinect-like sensor degradation with EXACT pose ground truth preserved.
+
+    Defaults follow the published Kinect v1 error model (Khoshelham &
+    Elberink 2012: depth noise sigma ~ 1.2 mm + quadratic growth) and TUM's
+    recording format (uint16 depth at 1/5000 m quantization); exposure drift
+    models the auto-exposure gain/bias wander real sequences show.
+    """
+
+    intensity_noise: float = 2.0  # gray levels, additive Gaussian
+    exposure_gain_amp: float = 0.05  # multiplicative drift amplitude
+    exposure_bias_amp: float = 4.0  # additive drift amplitude (gray levels)
+    depth_noise_a: float = 0.0012  # sigma(z) = a + b * (z - 0.4)^2  [m]
+    depth_noise_b: float = 0.0019
+    depth_quantization: float = 1.0 / 5000.0  # TUM uint16 depth step
+    hole_fraction: float = 0.03  # random dropout blobs
+    edge_hole_threshold: float = 0.04  # depth-gradient [m/px] that kills pixels
+    seed: int = 0
+
+
+def degrade(
+    intensity: np.ndarray,
+    depth: np.ndarray,
+    model: SensorModel = SensorModel(),
+    frame_index: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Apply the sensor model to a clean rendered frame (per-frame RNG is
+    derived from (seed, frame_index) so sequences are reproducible)."""
+    rng = np.random.default_rng((model.seed + 1) * 100003 + frame_index)
+    H, W = intensity.shape
+
+    # photometric: auto-exposure drift + shot noise (violates the brightness-
+    # constancy assumption the aligner relies on, like real sequences do)
+    phase = 2 * np.pi * rng.uniform()
+    gain = 1.0 + model.exposure_gain_amp * np.sin(0.3 * frame_index + phase)
+    bias = model.exposure_bias_amp * np.sin(0.23 * frame_index + 2 * phase)
+    out_i = gain * intensity + bias + rng.normal(0.0, model.intensity_noise, intensity.shape)
+    out_i = np.clip(out_i, 0.0, 255.0).astype(np.float32)
+
+    # depth: distance-dependent noise, quantization, holes
+    valid = depth > 0
+    sigma = model.depth_noise_a + model.depth_noise_b * np.square(np.maximum(depth - 0.4, 0.0))
+    out_d = depth + rng.normal(0.0, 1.0, depth.shape) * sigma
+    if model.depth_quantization > 0:
+        out_d = np.round(out_d / model.depth_quantization) * model.depth_quantization
+    # holes at depth discontinuities (stereo shadowing)
+    gy, gx = np.gradient(np.where(valid, depth, 0.0))
+    edge = np.hypot(gx, gy) > model.edge_hole_threshold
+    # random dropout blobs (low-res noise field thresholded -> speckle holes)
+    blob = rng.normal(size=(H // 8 + 1, W // 8 + 1))
+    blob = np.kron(blob, np.ones((8, 8)))[:H, :W]
+    dropout = blob > np.quantile(blob, 1.0 - model.hole_fraction)
+    out_d = np.where(valid & ~edge & ~dropout, out_d, 0.0)
+    return out_i, np.maximum(out_d, 0.0).astype(np.float32)

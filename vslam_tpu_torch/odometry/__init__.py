@@ -1,6 +1,25 @@
-"""Odometry front ends (port of `vslam_tpu.odometry`; the sequential scan so far)."""
+"""Odometry front ends (port of `vslam_tpu.odometry`, mapping off): the
+sequential scan, the per-frame host pipeline (`odometry.pipeline`) and its
+parts."""
 
-from . import sequential
+from . import keyframe, map as map_mod, motion_model, odometry, sequential, trajectory
+from .map import HostFrame, Landmark, Map
+from .odometry import OdometryRgbd
 from .sequential import SequentialConfig, SequentialOdometry
+from .trajectory import Trajectory
 
-__all__ = ["sequential", "SequentialConfig", "SequentialOdometry"]
+__all__ = [
+    "keyframe",
+    "map_mod",
+    "motion_model",
+    "odometry",
+    "sequential",
+    "trajectory",
+    "HostFrame",
+    "Landmark",
+    "Map",
+    "OdometryRgbd",
+    "SequentialConfig",
+    "SequentialOdometry",
+    "Trajectory",
+]

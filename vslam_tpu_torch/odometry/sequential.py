@@ -89,8 +89,7 @@ class SequentialState(NamedTuple):
 def _no_stereo(cfg: SequentialConfig) -> None:
     if cfg.stereo_baseline > 0.0:
         raise NotImplementedError(
-            "stereo depth (stereo_baseline > 0) is not ported yet: it comes with "
-            "io/kitti.py, ROADMAP.md Queue 1 #6"
+            "stereo depth (stereo_baseline > 0) is not ported yet: it comes with io/kitti.py"
         )
 
 
@@ -300,10 +299,10 @@ class SequentialOdometry:
         if mapping is not None:
             raise NotImplementedError(
                 "the mapping backend is not ported yet: it comes with features/, ba/ and "
-                "odometry/sequential_mapping.py, ROADMAP.md Queue 1 #5"
+                "odometry/sequential_mapping.py"
             )
         if viz is not None:
-            raise NotImplementedError("the live viewer is not ported yet (ROADMAP.md Queue 1 #9)")
+            raise NotImplementedError("the live viewer is not ported yet: it comes with viz/live.py")
         _no_stereo(cfg)
         self.device = camera.fx.device
         self.camera = _device_camera(camera, self.device)
