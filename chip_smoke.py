@@ -110,6 +110,36 @@ Phases, each ending in torch.cuda.synchronize():
                 scratch, Huber and Tukey, and the per-iteration sampler at
                 70,000 (pair, frame) rows, above the grid's y extent; each
                 bit for bit against its plain version
+ 20. KITTI    — `SequentialOdometry` with stereo depth over 32 rendered
+                1241x376 pairs (`bench.py:1064-1110`: fx 718.856, baseline
+                0.5372 m, 10 Hz, 4 levels, chunk 16, `fused_gn` bf16 2048
+                points bilinear): the block matcher on the card against the
+                CPU at the first pair; 4 x 31 whole-level launches and ATE
+                < 0.25 m beside the JAX package's recorded 0.0035 m;
+                frames/s staged and streamed; kernel 1 at each level's
+                inputs (1241x376, 621x188, 311x94, 156x47: an odd size
+                at every level) bit for bit
+                against its plain version, with its device ms; under
+                torch.profiler, the block matcher's device ms, launch
+                calls and share of a step, and the peak memory
+ 21. suite    — `MultiSequenceOdometry` over S = 4 sequences of 32 frames
+                at 480x640 (`bench.py:689-736`, the odometry profile): 3 x
+                31 whole-level launches for all four, max ATE < 0.01 m on
+                `run` and `run_staged`, each sequence within 1e-3 of its
+                own `SequentialOdometry` run, kernel 1 at the suite's
+                level-0 inputs (B = 4) bit for bit, aggregate frames/s
+                beside 4 x the single sequence's; the same gates with
+                sequence 3 cut to 24 frames (the live mask)
+ 22. aligners — the secondary aligners at 480x640 with their JAX tests'
+                gates and their times: `RgbdAlignerFa` on two frames of the
+                odometry profile, `IcpAligner` (both variants) on the JAX
+                test's three-plane scene, `align_optical_flow` and
+                `align_affine` (both methods) on the JAX tests' warped
+                smooth image
+Phase 18's second half runs after phase 21, on its frames and phase 20's:
+`odometry --format kitti` on a KITTI root of 8 pairs (host loop and
+--fused), and a repeated --dataset on two TUM directories and on two KITTI
+roots, each exit 0 with the ATE printed, where PIL can write the PNG files.
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for its work (`_bound`); the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script
@@ -832,10 +862,11 @@ def _run_profile(profile, poses, stream, camera, log):
     return quad + robust, ate
 
 
-def _frame_layers(odo, first, chunk, n_steps):
+def _frame_layers(odo, first, chunk, n_steps, extra=()):
     """One profiled `run_staged` of ``first`` and ``chunk``, with a
     `record_function` range around each odometry step and, inside it, the
-    frame build, the precompute and the alignment. Returns (per step:
+    frame build, the precompute, the alignment and the ``extra`` (module,
+    attribute, label) layers. Returns (per step:
     {layer: (host ms, CUDA launch calls)} with the rest of the step as a
     layer of its own, host ms outside the steps (first frame, fetch),
     device kernels, device-busy ms, profiled wall ms)."""
@@ -853,7 +884,7 @@ def _frame_layers(odo, first, chunk, n_steps):
         return call
 
     patches = [(seq, "_step", "step"), (seq, "create_frame", "frame build"),
-               (ic, "precompute_frame", "precompute"), (ic, "align", "align")]
+               (ic, "precompute_frame", "precompute"), (ic, "align", "align"), *extra]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, label in patches:
         setattr(mod, attr, ranged(label, getattr(mod, attr)))
@@ -1767,21 +1798,8 @@ def _cli(poses, traj, stream, card, log):
             log("phase 18 CLI odometry on a TUM directory: not run, PIL is not importable here to write "
                 "its PNG files")
             return
-        from PIL import Image
-
         root = os.path.join(d, "tum")
-        os.makedirs(os.path.join(root, "rgb"))
-        os.makedirs(os.path.join(root, "depth"))
-        rgb, depth = [], []
-        for i, (_, gray, d16) in enumerate(stream[:PIPE_SHORT_FRAMES]):
-            t = 1000.0 + i / 30.0
-            Image.fromarray(gray).save(os.path.join(root, "rgb", f"{t:.6f}.png"))
-            Image.fromarray(d16).save(os.path.join(root, "depth", f"{t:.6f}.png"))
-            rgb.append(f"{t:.6f} rgb/{t:.6f}.png")
-            depth.append(f"{t:.6f} depth/{t:.6f}.png")
-        for name, rows in (("rgb.txt", rgb), ("depth.txt", depth)):
-            with open(os.path.join(root, name), "w") as f:
-                f.write("\n".join(rows) + "\n")
+        _write_tum(root, poses, stream[:PIPE_SHORT_FRAMES])
         rc, lines = _cli_json(["odometry", "--dataset", root, "--out", os.path.join(d, "tum.txt"),
                                "--intrinsics", f"{FX},{FX},{(W - 1) / 2},{(H - 1) / 2}", "--fused",
                                "--chunk", "4"])
@@ -1789,6 +1807,532 @@ def _cli(poses, traj, stream, card, log):
             f"{' | '.join(lines)}")
         if rc != 0:
             raise AssertionError(f"phase 18 odometry: exit {rc}")
+
+
+# phase 20: the KITTI stereo scan, `bench.py:1064-1110` unchanged
+KITTI_H, KITTI_W = 376, 1241
+KITTI_CAM = (718.856, 718.856, 607.1928, 185.2157)
+KITTI_BASELINE = 0.5372
+KITTI_FRAMES = 32
+KITTI_CHUNK = 16
+KITTI_LEVELS = 4
+KITTI_DT_NS = int(1e9 / 10)
+KITTI_ATE_GATE = 0.25  # bench.py:1122
+KITTI_JAX_ATE_M = 0.0035  # the JAX package's accuracy record, BENCH_r05.json "kitti_ate_m"
+# phase 21: the suite, `bench.py:689-736` unchanged
+SUITE_S = 4
+SUITE_FRAMES = 32
+SUITE_CHUNK = 16
+SUITE_RAGGED = 24  # sequence 3's length in the ragged run
+RENDER_THREADS = 8
+
+
+def _walls(fn, reps=2):
+    """Host-clock seconds of ``reps`` calls of ``fn``, each ending in a
+    synchronize."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _render_all(jobs):
+    """The host renders (numpy, mostly outside the GIL) on RENDER_THREADS
+    threads, results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(RENDER_THREADS) as pool:
+        return list(pool.map(lambda job: job(), jobs))
+
+
+def _u8(img):
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+def _kitti_stream():
+    """(poses, [(t_ns, left u8, right u8)]) of the bench's KITTI geometry:
+    the slanted street plane, `smooth_trajectory(32, 0.4, 0.01)` re-based on
+    frame 0, the right camera 0.5372 m along the left one's +x."""
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.io import synthetic
+
+    K = synthetic.camera_matrix(*KITTI_CAM)
+    scene = synthetic.PlaneScene(normal=(0.0, -0.25, 1.0), d=12.0, n_waves=12)
+    poses = synthetic.smooth_trajectory(KITTI_FRAMES, trans_amp=0.4, rot_amp=0.01)
+    p0i = lie_np.inv(poses[0])
+    poses = [p @ p0i for p in poses]
+    right = np.eye(4)
+    right[0, 3] = -KITTI_BASELINE
+    imgs = _render_all([lambda T=off @ p: _u8(synthetic.render(K, T, (KITTI_H, KITTI_W), scene)[0])
+                        for p in poses for off in (np.eye(4), right)])
+    return poses, [(i * KITTI_DT_NS, imgs[2 * i], imgs[2 * i + 1]) for i in range(len(poses))]
+
+
+def _kitti_cfg():
+    """`bench.py:1093-1110`: the production alignment profile with
+    `min_gradient` 20 and bilinear sampling, 4 levels, stereo depth."""
+    import dataclasses
+
+    from vslam_tpu_torch.odometry.sequential import SequentialConfig
+
+    align = dataclasses.replace(_production_cfg(), min_gradient=20.0, interpolation="bilinear")
+    return SequentialConfig(alignment=align, n_levels=KITTI_LEVELS, kf_period=5,
+                            stereo_baseline=KITTI_BASELINE, stereo_max_disparity=96)
+
+
+def _kitti_ate(poses, results):
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.eval import metrics
+
+    gt = {i * KITTI_DT_NS / 1e9: lie_np.inv(p) for i, p in enumerate(poses)}
+    est = {t / 1e9: lie_np.inv(p) for t, p, _ in results}
+    ate, n = metrics.ate_rmse(gt, est, max_difference=0.05)
+    if n != len(poses):
+        raise AssertionError(f"ATE associated {n} of {len(poses)} frames")
+    return float(ate)
+
+
+def _kitti(poses, stream, card, log):
+    """Phase 20: `SequentialOdometry` over the KITTI stream (stereo depth by
+    block matching inside each step): the block matcher on the card against
+    the same function on the CPU at the first pair, the counted run (4 x 31
+    whole-level launches, ATE < 0.25 m), frames/s staged and streamed,
+    kernel 1 against its plain version at each level's inputs (odd sizes)
+    with its device ms, and under torch.profiler the block matcher's device
+    ms, launch calls and share of a step, and the peak memory. Returns
+    (launches, kernel 1's largest difference from its plain version)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from vslam_tpu_torch.alignment import fused_solve
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.io import kitti
+    from vslam_tpu_torch.odometry.sequential import SequentialOdometry, stage_stream
+
+    cfg = _kitti_cfg()
+    camera = Camera.create(*KITTI_CAM)
+    n_steps = len(stream) - 1
+    D = cfg.stereo_max_disparity
+
+    left, right = (torch.from_numpy(a).float() for a in stream[0][1:])
+    disp_card = kitti.block_matching_disparity(left.cuda(), right.cuda(), D).cpu()
+    disp_host = kitti.block_matching_disparity(left, right, D)
+    n_diff = int((disp_card != disp_host).sum())
+    share_card, share_host = ((d > 0).float().mean().item() for d in (disp_card, disp_host))
+    err_disp = (disp_card - disp_host).abs().max().item()
+    log(f"phase 20 block matcher (D={D}) at the first pair, card against CPU: valid share {share_card:.4f} "
+        f"and {share_host:.4f}, validity equal {torch.equal(disp_card > 0, disp_host > 0)}, {n_diff} of "
+        f"{disp_card.numel()} pixels differ, max |d disparity| {err_disp:.3e} px (limit 1e-4)")
+    if not (torch.equal(disp_card > 0, disp_host > 0) and err_disp < 1e-4 and share_card > 0.3):
+        raise AssertionError("phase 20: the block matcher on the card disagrees with the CPU")
+
+    odo = SequentialOdometry(camera, cfg, chunk=KITTI_CHUNK)
+    _reset_launches()
+    results = odo.run(iter(stream))
+    _sync()
+    launches = _launches()
+    ate = _kitti_ate(poses, results)
+    log(f"phase 20 KITTI stereo scan: {len(results)} frames at {KITTI_W}x{KITTI_H}, {KITTI_LEVELS} levels, chunk "
+        f"{KITTI_CHUNK}; launches (quadratic, robust) {launches} (expected ({KITTI_LEVELS * n_steps}, 0)); valid "
+        f"{sum(odo.valid)}/{len(results)}, keyframes {sum(odo.is_kf)}; ATE {ate:.5f} m (gate {KITTI_ATE_GATE}; the "
+        f"JAX package's accuracy record {KITTI_JAX_ATE_M} m)")
+    if launches != (KITTI_LEVELS * n_steps, 0) or not ate < KITTI_ATE_GATE:
+        raise AssertionError(f"phase 20: launches {launches} or ATE {ate} off")
+
+    first, chunks = stage_stream(iter(stream), KITTI_CHUNK)
+    odo.run_staged(first, chunks)
+    staged = _walls(lambda: odo.run_staged(first, chunks))
+    streamed = _walls(lambda: SequentialOdometry(camera, cfg, chunk=KITTI_CHUNK).run(iter(stream)))
+    n = len(stream)
+    log(f"phase 20 KITTI: run_staged {n / min(staged):.2f} frames/s (best of "
+        f"{', '.join(f'{t:.3f}' for t in staged)} s for {n} frames), run {n / min(streamed):.2f} frames/s "
+        f"(best of {', '.join(f'{t:.3f}' for t in streamed)} s) {card}")
+
+    captured = _profile_solve_inputs(odo, first, chunks)
+    widths = [args[2].shape[-1] for args in captured]
+    if len(captured) != KITTI_LEVELS:
+        raise AssertionError(f"phase 20: captured level widths {widths}, expected {KITTI_LEVELS} levels")
+    max_err = 0.0
+    for level, args in enumerate(captured):
+        out_k = fused_solve.solve_level_fused(*args)
+        err = _solve_result_diff(out_k, fused_solve.solve_level_fused_plain(*args))
+        max_err = max(max_err, err)
+        ms_k, seen = _kernel_device_ms(lambda: fused_solve.solve_level_fused(*args), 20, "solve_level_kernel")
+        ms_p = _events_ms(lambda: fused_solve.solve_level_fused_plain(*args), 2)
+        log(f"phase 20 kernel 1 at level {level} ({args[2].shape[-2]}x{args[2].shape[-1]}, F={args[0].templ.shape[1]}, "
+            f"P={args[0].templ.shape[-1]}, iterations {out_k[1].iterations.tolist()}): max abs difference from the "
+            f"plain version {err:.3e} over the pose, A, b, chi2, iterations and histories; kernel "
+            f"{ms_k:.4f} ms on the device (profiler, {seen} of 20 recorded), plain {ms_p:.3f} ms (events) {card}")
+    if max_err != 0.0:
+        raise AssertionError(f"phase 20: kernel 1 and its plain version differ by {max_err} at KITTI's levels")
+
+    # the block matcher alone, at the step's (1, H, W) inputs
+    l_d, r_d = left.cuda()[None], right.cuda()[None]
+    bm = lambda: kitti.stereo_depth(l_d, r_d, camera.fx, KITTI_BASELINE, max_disparity=D)  # noqa: E731
+    bm_ms, _ = _calls_device_ms(bm, 5)
+    calls = sum(1 for e in _profiled_events(bm) if e.device_type == DeviceType.CPU
+                and e.name.startswith(("cudaLaunch", "cuLaunch")))
+    _sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bm()
+    _sync()
+    bm_peak = torch.cuda.max_memory_allocated() - base
+    k = len(chunks[0].stamps)
+    split, _, n_kernels, busy_ms, wall = _frame_layers(odo, first, chunks[0], k,
+                                                       extra=[(kitti, "stereo_depth", "block matcher")])
+    torch.cuda.reset_peak_memory_stats()
+    odo.run_staged(first, chunks[:1])
+    _sync()
+    peak = torch.cuda.max_memory_allocated()
+    n1 = k + 1
+    busy_frame = busy_ms / n1
+    step_ms, step_calls = split["step"]
+    bm_host, bm_calls = split["block matcher"]
+    volume = D * KITTI_H * KITTI_W * 4
+    log(f"phase 20 block matcher per frame: {bm_ms:.3f} ms on the device (profiler, all its kernels, mean of 5 "
+        f"calls), {calls} launch calls (in the step: {bm_calls:.1f} of {step_calls:.1f}), host "
+        f"{bm_host:.3f} of the step's {step_ms:.3f} ms under torch.profiler ({bm_host / step_ms:.3f}); "
+        f"{bm_ms / busy_frame if busy_frame else float('nan'):.3f} of the step's device-busy {busy_frame:.3f} ms "
+        f"({n_kernels / n1:.1f} "
+        f"kernels a frame, wall {wall / n1:.3f} ms a frame); peak memory above the inputs "
+        f"{bm_peak / 2**20:.1f} MiB for one call ({bm_peak / volume:.2f} cost volumes of "
+        f"{volume / 2**20:.1f} MiB), {peak / 2**20:.1f} MiB allocated at most over a {KITTI_CHUNK}-frame chunk "
+        f"{card}")
+    parts = ", ".join(f"{name} {ms:.3f} ms / {c:.1f} launch calls" for name, (ms, c) in split.items())
+    log(f"phase 20 KITTI layers per step under torch.profiler (mean of {k} steps): {parts} {card}")
+    return launches[0], max_err
+
+
+def _suite_streams():
+    """(poses, S streams) of `bench.py:689-713`: `default_scene(seed=100+s)`
+    along `smooth_trajectory(32, 0.08, 0.03)` re-based on frame 0, uint8 /
+    uint16 at 1/5000 m."""
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.io import synthetic
+
+    K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    poses = synthetic.smooth_trajectory(SUITE_FRAMES, trans_amp=0.08, rot_amp=0.03)
+    p0i = lie_np.inv(poses[0])
+    poses = [p @ p0i for p in poses]
+    frames = _render_all([lambda s=s, p=p: synthetic.render(K, p, (H, W), synthetic.default_scene(seed=100 + s))
+                          for s in range(SUITE_S) for p in poses])
+    streams = [[(i * DT_NS, _u8(inten), np.clip(np.round(depth * 5000.0), 0, 65535).astype(np.uint16))
+                for i, (inten, depth) in enumerate(frames[s * SUITE_FRAMES:(s + 1) * SUITE_FRAMES])]
+               for s in range(SUITE_S)]
+    return poses, streams
+
+
+def _suite(poses, streams, card, log):
+    """Phase 21: `MultiSequenceOdometry` over the S = 4 streams (the
+    odometry profile): the counted `run` (3 x 31 whole-level launches for
+    all four, max ATE < 0.01 m), `run_staged` (the same gate), each
+    sequence within 1e-3 of its own `SequentialOdometry` run, every slot
+    of a suite of four copies of sequence 0 bit-equal to sequence 0 of the
+    suite, kernel 1 at
+    the suite's level-0 inputs (B = 4) against its plain version, aggregate
+    frames/s staged and streamed beside 4 x the single sequence's, and the
+    ragged run (sequence 3 cut to 24 frames). Returns (launches, kernel 1's
+    difference from its plain version)."""
+    from vslam_tpu_torch.alignment import fused_solve
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.odometry.sequential import SequentialOdometry, stage_stream
+    from vslam_tpu_torch.parallel.sequences import MultiSequenceOdometry
+
+    cfg = _odometry_cfg("odometry")
+    camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    n_steps = SUITE_FRAMES - 1
+
+    def counted(seqs, label):
+        odo = MultiSequenceOdometry([camera] * len(seqs), cfg, chunk=SUITE_CHUNK)
+        _reset_launches()
+        res = odo.run([iter(s) for s in seqs])
+        _sync()
+        launches = _launches()
+        ates = [_ate(poses[:len(s)], r) for s, r in zip(seqs, res)]
+        log(f"phase 21 suite {label}: S={len(seqs)} x {'/'.join(str(len(s)) for s in seqs)} frames at {H}x{W}, "
+            f"chunk {SUITE_CHUNK}; launches (quadratic, robust) {launches} (expected ({3 * n_steps}, 0)); ATE "
+            f"{', '.join(f'{a:.5f}' for a in ates)} m (gate 0.01)")
+        if launches != (3 * n_steps, 0) or not max(ates) < 0.01 or [len(r) for r in res] != [len(s) for s in seqs]:
+            raise AssertionError(f"phase 21 {label}: launches {launches}, ATE {ates} or lengths off")
+        return res, launches[0]
+
+    res, launches = counted(streams, "run")
+    gaps = []
+    for s, stream in enumerate(streams):
+        solo = SequentialOdometry(camera, cfg, chunk=SUITE_CHUNK).run(iter(stream))
+        gaps.append(max(np.linalg.norm(lie_np.log(lie_np.relative(a[1], b[1]))) for a, b in zip(solo, res[s])))
+    log(f"phase 21 each sequence against its own SequentialOdometry run: per-frame SE(3) gap max "
+        f"{', '.join(f'{g:.3e}' for g in gaps)} (gate 1e-3)")
+    if not max(gaps) < 1e-3:
+        raise AssertionError(f"phase 21: suite and single-sequence runs differ by {max(gaps)}")
+    # the gap above starts in cuBLAS's batched 3x3 products (se3.compose),
+    # whose last bits differ between a batch of 1 and of 4
+    # (scripts/suite_parity.py); within one batch size a slot's result
+    # depends on its own stream only
+    copies = MultiSequenceOdometry([camera] * SUITE_S, cfg, chunk=SUITE_CHUNK).run(
+        [iter(streams[0]) for _ in range(SUITE_S)])
+    same = [all(np.array_equal(a[1], b[1]) for a, b in zip(c, res[0])) for c in copies]
+    log(f"phase 21 a suite of {SUITE_S} copies of sequence 0: each slot's poses bit-equal to sequence 0's in the "
+        f"suite of the {SUITE_S} sequences: {same}")
+    if not all(same):
+        raise AssertionError(f"phase 21: a slot's poses depend on the other slots' streams: {same}")
+
+    odo = MultiSequenceOdometry([camera] * SUITE_S, cfg, chunk=SUITE_CHUNK)
+    firsts, chunks = odo.stage_streams([iter(s) for s in streams])
+    staged_res = odo.run_staged(firsts, chunks)
+    _sync()
+    ates = [_ate(poses, r) for r in staged_res]
+    staged = _walls(lambda: odo.run_staged(firsts, chunks))
+    streamed = _walls(lambda: MultiSequenceOdometry([camera] * SUITE_S, cfg, chunk=SUITE_CHUNK).run(
+        [iter(s) for s in streams]))
+    single = SequentialOdometry(camera, cfg, chunk=SUITE_CHUNK)
+    first1, chunks1 = stage_stream(iter(streams[0]), SUITE_CHUNK)
+    single.run_staged(first1, chunks1)
+    single_staged = _walls(lambda: single.run_staged(first1, chunks1))
+    single_streamed = _walls(lambda: SequentialOdometry(camera, cfg, chunk=SUITE_CHUNK).run(iter(streams[0])))
+    total = SUITE_S * SUITE_FRAMES
+    agg, agg_s = total / min(staged), total / min(streamed)
+    one, one_s = SUITE_FRAMES / min(single_staged), SUITE_FRAMES / min(single_streamed)
+    log(f"phase 21 suite run_staged: max ATE {max(ates):.5f} m (gate 0.01); aggregate {agg:.2f} frames/s staged "
+        f"(best of {', '.join(f'{t:.3f}' for t in staged)} s for {total} frames) against {SUITE_S} x the single "
+        f"sequence's {one:.2f} = {SUITE_S * one:.2f} ({agg / one:.2f} x single); streamed {agg_s:.2f} (best of "
+        f"{', '.join(f'{t:.3f}' for t in streamed)} s) against {SUITE_S} x {one_s:.2f} = {SUITE_S * one_s:.2f} "
+        f"({agg_s / one_s:.2f} x single) {card}")
+    if not max(ates) < 0.01:
+        raise AssertionError(f"phase 21 run_staged: ATE {ates}")
+
+    captured = {}
+    with _tap(fused_solve, "solve_level_fused", lambda args, _: captured.__setitem__(args[2].shape[-1], args)):
+        odo.run_staged(firsts, chunks[:1])
+    _sync()
+    args = captured[W]
+    out_k = fused_solve.solve_level_fused(*args)
+    err = _solve_result_diff(out_k, fused_solve.solve_level_fused_plain(*args))
+    ms_k, seen = _kernel_device_ms(lambda: fused_solve.solve_level_fused(*args), 20, "solve_level_kernel")
+    log(f"phase 21 kernel 1 at the suite's level-0 inputs (B={args[0].templ.shape[0]}, F={args[0].templ.shape[1]}, "
+        f"P={args[0].templ.shape[-1]}, camera leaves {tuple(args[3].fx.shape)}): max abs difference from the plain "
+        f"version {err:.3e}; kernel {ms_k:.4f} ms on the device (profiler, {seen} of 20 recorded) {card}")
+    if err != 0.0 or args[0].templ.shape[0] != SUITE_S:
+        raise AssertionError(f"phase 21: kernel 1 at B={args[0].templ.shape[0]} differs by {err}")
+
+    ragged = streams[:-1] + [streams[-1][:SUITE_RAGGED]]
+    res_r, launches_r = counted(ragged, f"ragged (sequence {SUITE_S - 1} cut to {SUITE_RAGGED} frames)")
+    gap_r = max(np.linalg.norm(lie_np.log(lie_np.relative(a[1], b[1]))) for a, b in zip(res_r[-1], res[-1]))
+    log(f"phase 21 ragged: sequence {SUITE_S - 1}'s {SUITE_RAGGED} frames against the same frames of the full "
+        f"run: per-frame gap max {gap_r:.3e} (gate 1e-3)")
+    if not gap_r < 1e-3:
+        raise AssertionError(f"phase 21 ragged: gap {gap_r}")
+    return launches + launches_r, err
+
+
+def _write_tum(root, poses, stream):
+    """A TUM directory of ``stream``'s (t_ns, uint8, uint16) frames, PNG,
+    with ``poses`` as its ground truth."""
+    import os
+
+    from PIL import Image
+
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.io import tum
+
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "depth"))
+    rgb, depth = [], []
+    for i, (_, gray, d16) in enumerate(stream):
+        t = 1000.0 + i / 30.0
+        Image.fromarray(gray).save(os.path.join(root, "rgb", f"{t:.6f}.png"))
+        Image.fromarray(d16).save(os.path.join(root, "depth", f"{t:.6f}.png"))
+        rgb.append(f"{t:.6f} rgb/{t:.6f}.png")
+        depth.append(f"{t:.6f} depth/{t:.6f}.png")
+    for name, rows in (("rgb.txt", rgb), ("depth.txt", depth)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    tum.write_trajectory(os.path.join(root, "groundtruth.txt"),
+                         {1000.0 + i / 30.0: lie_np.inv(p) for i, p in enumerate(poses[:len(stream)])})
+
+
+def _write_kitti(root, poses, stream):
+    """A KITTI odometry root (sequence 00) of ``stream``'s stereo pairs, PNG,
+    with the bench's calibration, times and ground truth."""
+    import os
+
+    from PIL import Image
+
+    from vslam_tpu_torch.core import lie_np
+
+    seq = os.path.join(root, "sequences", "00")
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(seq, sub))
+    os.makedirs(os.path.join(root, "poses"))
+    for i, (_, left, right) in enumerate(stream):
+        Image.fromarray(left).save(os.path.join(seq, "image_0", f"{i:06d}.png"))
+        Image.fromarray(right).save(os.path.join(seq, "image_1", f"{i:06d}.png"))
+    fx, fy, cx, cy = KITTI_CAM
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        f.write(f"P0: {fx} 0 {cx} 0 0 {fy} {cy} 0 0 0 1 0\n"
+                f"P1: {fx} 0 {cx} {-fx * KITTI_BASELINE} 0 {fy} {cy} 0 0 0 1 0\n")
+    with open(os.path.join(seq, "times.txt"), "w") as f:
+        f.write("\n".join(f"{i * KITTI_DT_NS / 1e9:.6f}" for i in range(len(stream))) + "\n")
+    with open(os.path.join(root, "poses", "00.txt"), "w") as f:
+        f.write("\n".join(" ".join(f"{v:.9f}" for v in lie_np.inv(p)[:3, :4].reshape(-1)) for p in poses) + "\n")
+
+
+def _cli_kitti_suites(tum_sets, kitti_poses, kitti_stream, card, log):
+    """Phase 18, its KITTI and suite half: `odometry --format kitti` on a
+    KITTI root of PIPE_SHORT_FRAMES bench pairs (host loop and --fused), a
+    repeated --dataset on two TUM directories (the odometry and robust
+    profiles' first frames) and on two KITTI roots (the KITTI stream's
+    first and second PIPE_SHORT_FRAMES pairs), each exit 0 with the ATE
+    printed. Needs PIL to write the PNG files (the output says where it is
+    missing). Returns the whole-level launches."""
+    import importlib.util
+    import os
+    import tempfile
+
+    if importlib.util.find_spec("PIL") is None:
+        log("phase 18 CLI on KITTI roots and suites: not run, PIL is not importable here to write PNG files")
+        return 0
+    n = PIPE_SHORT_FRAMES
+    launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        tums = [os.path.join(d, f"tum{k}") for k in range(2)]
+        for root, (poses, stream) in zip(tums, tum_sets):
+            _write_tum(root, poses, stream[:n])
+        kittis = [os.path.join(d, f"kitti{k}") for k in range(2)]
+        for k, root in enumerate(kittis):
+            _write_kitti(root, kitti_poses[k * n:(k + 1) * n], kitti_stream[k * n:(k + 1) * n])
+        tum_k = f"{FX},{FX},{(W - 1) / 2},{(H - 1) / 2}"
+        runs = [("odometry --format kitti (host loop)", ["--dataset", kittis[0], "--format", "kitti"]),
+                ("odometry --format kitti --fused", ["--dataset", kittis[0], "--format", "kitti", "--fused"]),
+                ("odometry suite of two TUM directories",
+                 ["--dataset", tums[0], "--dataset", tums[1], "--intrinsics", tum_k, "--fused"]),
+                ("odometry suite of two KITTI roots",
+                 ["--dataset", kittis[0], "--dataset", kittis[1], "--format", "kitti", "--fused"])]
+        for label, argv in runs:
+            _reset_launches()
+            t0 = time.perf_counter()
+            rc, lines = _cli_json(["odometry", *argv, "--out", os.path.join(d, "out.txt"), "--chunk", "4"])
+            _sync()
+            launches += _launches()[0]
+            res = [json.loads(line) for line in lines if line.startswith("{")]
+            entries = res[-1].get("results", [res[-1]]) if res else []
+            ates = [e.get("ate_rmse_m") for e in entries]
+            log(f"phase 18 CLI {label}: exit {rc}, {len(res)} JSON lines, ATE {ates} m, whole-level launches "
+                f"{_launches()[0]} ({time.perf_counter() - t0:.1f} s) {card}")
+            if rc != 0 or not ates or not all(isinstance(a, float) and np.isfinite(a) for a in ates):
+                raise AssertionError(f"phase 18 {label}: exit {rc}, {lines[-3:]}")
+    return launches
+
+
+def _render_composite(K, pose, shape):
+    """`tests/test_icp.py`'s three tilted planes (the nearer surface wins):
+    three independent normals, which point-to-plane ICP needs to fix every
+    translation."""
+    from vslam_tpu_torch.io import synthetic
+
+    i, d = None, None
+    for s in (synthetic.PlaneScene(normal=(0.35, 0.0, 1.0), d=2.0, seed=1),
+              synthetic.PlaneScene(normal=(-0.3, 0.25, 1.0), d=1.6, seed=2),
+              synthetic.PlaneScene(normal=(0.1, -0.4, 1.0), d=1.8, seed=3)):
+        ii, dd = synthetic.render(K, pose, shape, s)
+        if d is None:
+            i, d = ii, dd
+        else:
+            take = (dd > 0) & ((dd < d) | (d <= 0))
+            d, i = np.where(take, dd, d), np.where(take, ii, i)
+    return i.astype(np.float32), d.astype(np.float32)
+
+
+def _secondary_aligners(poses, stream, card, log):
+    """Phase 22: the secondary aligners on the card at 480x640, each with
+    its JAX test's gate and its time (CUDA events around the call, best of
+    3 after a warm-up): `RgbdAlignerFa` on frames 0 and 2 of the odometry
+    profile (pose error < 0.01); `IcpAligner` on two frames of the JAX
+    test's three-plane scene (< 0.012; the profile's single plane leaves
+    two translations free); `align_optical_flow` and `align_affine` (both
+    methods) on the JAX tests' smooth image (cubic zoom of noise at a
+    quarter of the size; the profile's texture repeats every few pixels,
+    too fine for the forward-additive gradients) warped by their shift and
+    affine map (flow within 0.1 px; the affine matrix within 0.05, and
+    every image corner within 0.1 px of where the map puts it)."""
+    import torch
+    from scipy.ndimage import affine_transform, shift as nd_shift
+
+    from vslam_tpu_torch.alignment import fa_se3, icp, lk2d
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.core.frame import create_frame
+    from vslam_tpu_torch.io import synthetic
+    from vslam_tpu_torch.solvers import SolverConfig
+
+    camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    device = camera.fx.device
+
+    def frame(inten, depth):
+        return create_frame(torch.as_tensor(inten, dtype=torch.float32, device=device),
+                            torch.as_tensor(depth, dtype=torch.float32, device=device), camera, n_levels=N_LEVELS)
+
+    def timed(fn):
+        fn()
+        return fn(), min(_events_ms(fn, 1) for _ in range(3))
+
+    gap = lambda a, b: float(np.linalg.norm(lie_np.log(lie_np.relative(a, b))))  # noqa: E731
+    failures = []
+
+    (_, i0, d0), (_, i2, d2) = stream[0], stream[2]
+    f0, f2 = frame(i0, d0 / 5000.0), frame(i2, d2 / 5000.0)
+    fa = fa_se3.RgbdAlignerFa(fa_se3.FaAlignmentConfig(min_gradient=10.0))
+    (pose, _, ok), ms = timed(lambda: fa.align([f0], [poses[0]], f2, poses[0]))
+    err = gap(pose, poses[2])
+    log(f"phase 22 RgbdAlignerFa, frames 0 and 2 of the odometry profile at {H}x{W}: ok {ok}, pose error "
+        f"{err:.5f} (gate 0.01), {ms:.3f} ms a call {card}")
+    failures += [] if ok and err < 0.01 else ["RgbdAlignerFa"]
+
+    K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    xi = np.array([0.015, 0.01, -0.01, 0.005, 0.006, -0.004])
+    g0, g1 = (frame(*_render_composite(K, T, (H, W))) for T in (np.eye(4), lie_np.exp(xi)))
+    for variant, gate in (("point_to_plane", 0.012), ("point_to_point", 0.03)):
+        aligner = icp.IcpAligner(icp.IcpConfig(solver=SolverConfig(max_iterations=30, min_step_size=1e-7),
+                                               variant=variant))
+        (pose, _, ok), ms = timed(lambda: aligner.align([g0], [np.eye(4)], g1, np.eye(4)))
+        err = gap(pose, lie_np.exp(xi))
+        log(f"phase 22 IcpAligner {variant}, the three-plane scene at {H}x{W}: ok {ok}, pose error {err:.5f} "
+            f"(gate {gate}), {ms:.3f} ms a call {card}")
+        failures += [] if ok and err < gate else [f"IcpAligner {variant}"]
+
+    from scipy.ndimage import zoom
+
+    img = zoom(np.random.default_rng(42).uniform(0, 255, (H // 4, W // 4)), 4, order=3).astype(np.float32)
+    flow = np.array([2.3, -1.7])
+    shifted = nd_shift(img, shift=(flow[1], flow[0]), order=1, mode="nearest")
+    # the JAX test's map; the image is I = T o W^-1 with the map in (row, col) order
+    A = np.array([[1.02, -0.015, 1.5], [0.01, 1.025, -2.0]])
+    Ainv = np.linalg.inv(np.vstack([A, [0, 0, 1]]))
+    warped = affine_transform(img, Ainv[:2, :2][::-1, ::-1], offset=(Ainv[1, 2], Ainv[0, 2]), order=1,
+                              mode="nearest")
+    corners = np.array([[0, W - 1, 0, W - 1], [0, 0, H - 1, H - 1], [1, 1, 1, 1]], np.float64)
+    t_img, t_shift, t_warp = (torch.as_tensor(a, device=device) for a in (img, shifted, warped))
+    for method in ("inverse_compositional", "forward_additive"):
+        cfg = lk2d.Lk2dConfig(method=method)
+        (p, res), ms = timed(lambda: lk2d.align_optical_flow(t_img, t_shift, cfg=cfg))
+        err = float(np.abs(p.cpu().numpy() - flow).max())
+        log(f"phase 22 align_optical_flow {method}, the smooth image at {H}x{W}: valid {bool(res.valid)}, flow {p.tolist()}, max "
+            f"error {err:.4f} px (gate 0.1), {int(res.iterations)} iterations, {ms:.3f} ms a call {card}")
+        failures += [] if bool(res.valid) and err < 0.1 else [f"align_optical_flow {method}"]
+        (p, res), ms = timed(lambda: lk2d.align_affine(t_img, t_warp, cfg=cfg))
+        q = p.cpu().numpy().astype(np.float64)
+        miss = np.array([[1 + q[0], q[2], q[4]], [q[1], 1 + q[3], q[5]]]) - A
+        err, px = float(np.abs(miss).max()), float(np.linalg.norm(miss @ corners, axis=0).max())
+        log(f"phase 22 align_affine {method}, the smooth image at {H}x{W}: valid {bool(res.valid)}, matrix max error {err:.5f} "
+            f"(gate 0.05), corner error {px:.5f} px (gate 0.1), {int(res.iterations)} iterations, {ms:.3f} ms a call {card}")
+        failures += [] if bool(res.valid) and err < 0.05 and px < 0.1 else [f"align_affine {method}"]
+    if failures:
+        raise AssertionError(f"phase 22: {failures} missed their gates")
 
 
 def _smem_path(F, P, robust=True):
@@ -2097,6 +2641,35 @@ def main() -> int:
     err_sizes = _size_repairs(frames, xis, log)
     _sync()
     log(f"phase 19 took {time.perf_counter() - t0:.1f} s")
+
+    # 20. the KITTI stereo scan
+    t0 = time.perf_counter()
+    kitti_poses, kitti_stream = _kitti_stream()
+    log(f"phase 20: rendered {len(kitti_stream)} stereo pairs at {KITTI_W}x{KITTI_H} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches_kitti, err_kitti = _kitti(kitti_poses, kitti_stream, card, log)
+    _sync()
+    log(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+
+    # 21. the suite: four sequences in lock-step, and a ragged run
+    t0 = time.perf_counter()
+    suite_poses, suite_streams = _suite_streams()
+    log(f"phase 21: rendered {SUITE_S} x {SUITE_FRAMES} frames at {H}x{W} in {time.perf_counter() - t0:.1f} s")
+    launches_suite, err_suite = _suite(suite_poses, suite_streams, card, log)
+    _sync()
+    log(f"phase 21 took {time.perf_counter() - t0:.1f} s")
+
+    # 18, its second half: the CLI on KITTI roots and suites
+    t0 = time.perf_counter()
+    _cli_kitti_suites([streams["odometry"], streams["robust"]], kitti_poses, kitti_stream, card, log)
+    log(f"phase 18 (KITTI and suites) took {time.perf_counter() - t0:.1f} s")
+
+    # 22. the secondary aligners
+    t0 = time.perf_counter()
+    _secondary_aligners(*streams["odometry"], card, log)
+    _sync()
+    log(f"phase 22 took {time.perf_counter() - t0:.1f} s")
+    max_abs = max(max_abs, err_kitti, err_suite)
     max_abs_robust = max(max_abs_robust, err_sizes["solve_level_fused_robust"])
     err_new["fused_level_sample"] = max(err_new["fused_level_sample"], err_sizes["fused_level_sample"])
     for name, n in launches_pipe.items():
@@ -2110,7 +2683,8 @@ def main() -> int:
         "route": "cuda",
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:533",
-        "launches": launches_pairs[0] + launches_odo["odometry"] + launches_pipe["solve_level_fused"],
+        "launches": launches_pairs[0] + launches_odo["odometry"] + launches_pipe["solve_level_fused"]
+        + launches_kitti + launches_suite,
         "max_abs_err": max_abs,
         "ms": sum(ms_k.values()),
         "plain_ms": sum(ms_p.values()),

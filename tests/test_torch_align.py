@@ -30,6 +30,7 @@ from vslam_tpu.solvers import SolverConfig as JSolverConfig
 from vslam_tpu_torch import interop
 from vslam_tpu_torch.alignment import RgbdAligner as TRgbdAligner
 from vslam_tpu_torch.parallel.batched import align_pairs as t_align_pairs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _np_tree(tree):

@@ -10,6 +10,7 @@ import pytest
 
 from vslam_tpu import config as jconfig
 from vslam_tpu_torch import config as tconfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CONFIGS = pathlib.Path(__file__).resolve().parent.parent / "configs"
 

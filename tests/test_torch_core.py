@@ -25,6 +25,7 @@ from vslam_tpu_torch.core.frame import create_frame as t_create_frame
 from vslam_tpu_torch.io import synthetic as tsyn
 from vslam_tpu_torch.solvers import linalg6 as tlin
 from vslam_tpu_torch.utils.tree import tree_map
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 H, W = 37, 53  # odd on purpose: reflect borders and ceil(n/2) pyramid sizes
 FX = 60.0

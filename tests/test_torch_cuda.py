@@ -621,3 +621,125 @@ def test_pipelined_run_never_waits_for_the_card_while_it_queues(device, monkeypa
     strict = pipeline.OdometryPipeline(cam, cfg).run(iter(items), pipelined=False)
     for (t, a), (_, b) in zip(traj.items(), strict.items()):
         assert _pose_gap(a, b) < 2e-3, t
+
+
+def _assert_solve_equal(out_k, out_p):
+    (rel_k, res_k), (rel_p, res_p) = out_k, out_p
+    assert res_k.iterations.tolist() == res_p.iterations.tolist()
+    for a, b in [(rel_k.R, rel_p.R), (rel_k.t, rel_p.t), (res_k.A, res_p.A), (res_k.b, res_p.b),
+                 (res_k.chi2, res_p.chi2), (res_k.valid, res_p.valid),
+                 (res_k.chi2_history, res_p.chi2_history), (res_k.step_history, res_p.step_history)]:
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+KITTI_CAM = (718.856, 718.856, 607.1928, 185.2157)
+
+
+@pytest.fixture(scope="module")
+def kitti_frames(device):
+    """Two frames of the KITTI bench geometry (1241x376, the street plane,
+    0.3 m apart) with 4 pyramid levels: 1241x376, 621x188, 311x94 and
+    156x47, an odd size at every level."""
+    K = synthetic.camera_matrix(*KITTI_CAM)
+    scene = synthetic.PlaneScene(normal=(0.0, -0.25, 1.0), d=12.0, n_waves=12)
+    cam = Camera.create(*KITTI_CAM, device=device)
+    xi = np.array([0.02, -0.01, 0.3, 0.002, -0.003, 0.001])
+    frames = []
+    for pose in (np.eye(4), lie_np.exp(xi)):
+        inten, depth = synthetic.render(K, pose, (376, 1241), scene)
+        frames.append(create_frame(torch.as_tensor(np.round(inten), device=device),
+                                   torch.as_tensor(depth, device=device), cam, n_levels=4))
+    return frames, xi
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_kernel_at_kitti_odd_level_sizes_equals_plain(device, kitti_frames, level):
+    """The whole-level kernel at each level of KITTI's 4-level pyramid (the
+    stereo scan's F = 2 slice, bilinear, bf16, prior), bit for bit."""
+    (ref, cur), xi = kitti_frames
+    stacked = stack_frames([stack_frames([ref, ref])])  # B = 1, the scan's {keyframe, last} slice
+    cur = stack_frames([cur])
+    H_l, W_l = cur.intensity[level].shape[-2:]
+    assert (W_l % 2, H_l % 2) == ((1, 0) if level < 3 else (0, 1))
+    data = ic.precompute_level(stacked.intensity[level], stacked.dIx[level], stacked.dIy[level],
+                               stacked.depth[level], ic._first_camera(stacked.cameras[level], 1), 20.0,
+                               max_points=2048 >> (2 * level))
+    rel = lie_np.exp(0.9 * xi)
+    rel0 = SE3(torch.as_tensor(rel[:3, :3], dtype=torch.float32, device=device).expand(1, 2, 3, 3).contiguous(),
+               torch.as_tensor(rel[:3, 3], dtype=torch.float32, device=device).expand(1, 2, 3).contiguous())
+    x_pred = torch.as_tensor(lie_np.log(rel), dtype=torch.float32, device=device).expand(1, 2, 6).contiguous()
+    cfg = ic.AlignmentConfig(min_gradient=20.0, solver=SolverConfig(100, 1e-11, min_relative_reduction=1e-4),
+                             include_prior=True, interpolation="bilinear", sampler="fused_gn",
+                             image_dtype="bfloat16", max_points=2048)
+    before = fused_solve.LAUNCHES
+    out_k = fused_solve.solve_level_fused(data, rel0, cur.intensity[level], cur.cameras[level], cfg, x_pred)
+    out_p = fused_solve.solve_level_fused_plain(data, rel0, cur.intensity[level], cur.cameras[level], cfg, x_pred)
+    torch.cuda.synchronize()
+    assert fused_solve.LAUNCHES == before + 1
+    assert int(out_k[1].iterations.max()) > 0 or level == 3
+    _assert_solve_equal(out_k, out_p)
+
+
+def test_kernel_at_suite_batch_with_per_sequence_intrinsics_equals_plain(device):
+    """B = S = 4 pairs of F = 2 frames, each sequence with its own fx and
+    principal point (camera leaves (4,)), as the suite's step gives them."""
+    fxs = [FX, FX * 1.25, FX * 0.8, FX * 1.1]
+    refs, curs, rels = [], [], []
+    rng = np.random.default_rng(3)
+    for s, fx in enumerate(fxs):
+        cx, cy = (W - 1) / 2 + s, (H - 1) / 2 - s
+        K = synthetic.camera_matrix(fx, fx, cx, cy)
+        cam = Camera.create(fx, fx, cx, cy, device=device)
+        xi = np.concatenate([rng.uniform(-0.02, 0.02, 3), rng.uniform(-0.01, 0.01, 3)])
+        scene = synthetic.default_scene(seed=100 + s)
+        pair = []
+        for f in range(2):
+            inten, depth = synthetic.render(K, lie_np.exp(xi * f / 2), (H, W), scene)
+            pair.append(create_frame(torch.as_tensor(np.round(inten), device=device),
+                                     torch.as_tensor(depth, device=device), cam, n_levels=1))
+            rels.append(lie_np.relative(lie_np.exp(xi * f / 2), lie_np.exp(0.9 * xi)))
+        refs.append(stack_frames(pair))
+        inten, depth = synthetic.render(K, lie_np.exp(xi), (H, W), scene)
+        curs.append(create_frame(torch.as_tensor(np.round(inten), device=device),
+                                 torch.as_tensor(depth, device=device), cam, n_levels=1))
+    ref, cur = stack_frames(refs), stack_frames(curs)
+    assert cur.cameras[0].fx.shape == (4,) and len(set(cur.cameras[0].fx.tolist())) == 4
+    data = ic.precompute_level(ref.intensity[0], ref.dIx[0], ref.dIy[0], ref.depth[0],
+                               ic._first_camera(ref.cameras[0], 4), 30.0, max_points=2048)
+    rels = np.stack(rels).reshape(4, 2, 4, 4)
+    rel0 = SE3(torch.as_tensor(rels[..., :3, :3], dtype=torch.float32, device=device),
+               torch.as_tensor(rels[..., :3, 3], dtype=torch.float32, device=device))
+    x_pred = torch.as_tensor(np.stack([lie_np.log(r) for r in rels.reshape(-1, 4, 4)]).reshape(4, 2, 6),
+                             dtype=torch.float32, device=device)
+    cfg = ic.AlignmentConfig(min_gradient=30.0, solver=SolverConfig(100, 1e-11, min_relative_reduction=1e-4),
+                             include_prior=True, interpolation="bilinear", sampler="fused_gn",
+                             image_dtype="bfloat16", max_points=2048)
+    before = fused_solve.LAUNCHES
+    out_k = fused_solve.solve_level_fused(data, rel0, cur.intensity[0], cur.cameras[0], cfg, x_pred)
+    out_p = fused_solve.solve_level_fused_plain(data, rel0, cur.intensity[0], cur.cameras[0], cfg, x_pred)
+    torch.cuda.synchronize()
+    assert fused_solve.LAUNCHES == before + 1
+    assert int(out_k[1].iterations.max()) > 1
+    _assert_solve_equal(out_k, out_p)
+
+
+def test_block_matcher_on_the_card_equals_the_cpu(device, kitti_frames):
+    """`io.kitti.stereo_depth` on CUDA tensors (S = 2 pairs, one fx each)
+    against the same call on CPU tensors: validity equal, disparity-derived
+    depth within 1e-5 relative."""
+    from vslam_tpu_torch.io import kitti
+
+    K = synthetic.camera_matrix(*KITTI_CAM)
+    scene = synthetic.PlaneScene(normal=(0.0, -0.25, 1.0), d=12.0, n_waves=12)
+    shift = np.eye(4)
+    shift[0, 3] = -0.5372
+    left, right = (np.round(synthetic.render(K, T, (376, 1241), scene)[0]).astype(np.float32)
+                   for T in (np.eye(4), shift))
+    l2, r2 = np.stack([left, left]), np.stack([right, right])
+    fx = torch.tensor([KITTI_CAM[0], 0.9 * KITTI_CAM[0]])
+    got = kitti.stereo_depth(torch.as_tensor(l2, device=device), torch.as_tensor(r2, device=device),
+                             fx.to(device), 0.5372, max_disparity=96).cpu()
+    want = kitti.stereo_depth(torch.as_tensor(l2), torch.as_tensor(r2), fx, 0.5372, max_disparity=96)
+    assert (want > 0).float().mean() > 0.3
+    torch.testing.assert_close(got > 0, want > 0, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)

@@ -14,11 +14,24 @@ JAX package's on the same files.
 * `synthetic --frames 8 --device cpu` tracks (ATE < 0.01 m).
 * `reproduce` exits 0, 1 and 2 as the JAX CLI does
   (`tests/test_cli_e2e.py:373-412`).
+* `odometry --format kitti` on a mini-KITTI tree of 8 stereo pairs (PNG
+  files, `test_torch_kitti.build_mini_kitti`), host loop and `--fused
+  --parity`: each trajectory file within 1e-3 of the JAX CLI's per pose
+  (the fused scan's against that tree's file of the JAX suite run, which
+  the suite case shares).
+* Suite mode, a repeated `--dataset`, on two TUM directories (8 and 6
+  frames: ragged) and on two KITTI roots, `--parity`: the summary JSON has
+  the JAX summary's keys, frame counts and per-sequence entries and files,
+  each per-sequence trajectory within 1e-3 of JAX's per pose, and the
+  `_suite.meta.json` beside them. KITTI roots with different baselines exit 2.
 * Each option that waits for an unported module raises NotImplementedError
-  naming it.
+  naming it, in suite mode too.
 """
 
+import contextlib
+import io
 import json
+import os
 import re
 import shutil
 
@@ -31,6 +44,9 @@ from vslam_tpu_torch.core import lie_np
 from vslam_tpu_torch.eval.evaluate import main as port_main
 from vslam_tpu_torch.io import synthetic, tum
 
+from test_torch_kitti import build_mini_kitti
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+
 H, W, FX = 96, 128, 110.0
 N_FRAMES = 8
 INTRINSICS = f"{FX},{FX},{(W - 1) / 2},{(H - 1) / 2}"
@@ -38,11 +54,19 @@ INTRINSICS = f"{FX},{FX},{(W - 1) / 2},{(H - 1) / 2}"
 
 @pytest.fixture(scope="module")
 def mini_dataset(tmp_path_factory):
-    root = tmp_path_factory.mktemp("mini_tum")
+    return _build_mini_tum(tmp_path_factory.mktemp("mini_tum"), N_FRAMES, seed=11)
+
+
+@pytest.fixture(scope="module")
+def mini_dataset_b(tmp_path_factory):
+    return _build_mini_tum(tmp_path_factory.mktemp("mini_tum_b"), 6, seed=5)
+
+
+def _build_mini_tum(root, n_frames, seed):
     (root / "rgb").mkdir()
     (root / "depth").mkdir()
     K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
-    poses = synthetic.smooth_trajectory(N_FRAMES, trans_amp=0.06, rot_amp=0.02, seed=11)
+    poses = synthetic.smooth_trajectory(n_frames, trans_amp=0.06, rot_amp=0.02, seed=seed)
     p0i = lie_np.inv(poses[0])
     poses = [p @ p0i for p in poses]
     rgb_lines, depth_lines, gt = [], [], {}
@@ -59,6 +83,16 @@ def mini_dataset(tmp_path_factory):
     (root / "depth.txt").write_text("# ts file\n" + "\n".join(depth_lines) + "\n")
     tum.write_trajectory(str(root / "groundtruth.txt"), gt)
     return root
+
+
+@pytest.fixture(scope="module")
+def mini_kitti(tmp_path_factory):
+    return build_mini_kitti(tmp_path_factory.mktemp("mini_kitti"), seed=4)
+
+
+@pytest.fixture(scope="module")
+def mini_kitti_b(tmp_path_factory):
+    return build_mini_kitti(tmp_path_factory.mktemp("mini_kitti_b"), seed=12)
 
 
 def _json_lines(capsys):
@@ -166,15 +200,120 @@ def test_reproduce_exit_codes(mini_dataset, tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv,module",
     [
-        (["odometry", "--dataset", "d", "--format", "kitti"], "io/kitti.py"),
         (["odometry", "--dataset", "d", "--mapping"], "odometry/sequential_mapping.py"),
-        (["odometry", "--dataset", "d", "--dataset", "e", "--fused"], "parallel/sequences.py"),
+        (["odometry", "--dataset", "d", "--dataset", "e", "--mapping"], "odometry/sequential_mapping.py"),
         (["odometry", "--dataset", "d", "--live-viz", "0"], "viz/live.py"),
         (["synthetic", "--mapping"], "odometry/sequential_mapping.py"),
         (["synthetic", "--live-viz", "0"], "viz/live.py"),
     ],
-    ids=["kitti", "mapping", "suite", "live-viz", "synthetic-mapping", "synthetic-live-viz"],
+    ids=["mapping", "suite-mapping", "live-viz", "synthetic-mapping", "synthetic-live-viz"],
 )
 def test_unported_options_raise_naming_their_module(argv, module):
     with pytest.raises(NotImplementedError, match=re.escape(module)):
         port_main([*argv, "--device", "cpu"])
+
+
+def _assert_trajectory_files_close(port_path, jax_path, n):
+    got, want = tum.read_trajectory(port_path), tum.read_trajectory(jax_path)
+    assert sorted(got) == sorted(want) and len(got) == n
+    for t in want:
+        assert np.linalg.norm(lie_np.log(lie_np.relative(got[t], want[t]))) < 1e-3, (port_path, t)
+
+
+def _suite_argv(roots, out, kitti):
+    argv = ["odometry"]
+    for r in roots:
+        argv += ["--dataset", str(r)]
+    argv += ["--out", out, "--fused", "--parity", "--chunk", "4"]
+    return argv + (["--format", "kitti"] if kitti else ["--intrinsics", INTRINSICS])
+
+
+def _printed(main, argv):
+    """(exit code, the JSON lines ``main(argv)`` prints)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+@pytest.fixture(scope="module")
+def jax_kitti(mini_kitti, mini_kitti_b, tmp_path_factory):
+    """The JAX CLI on the mini-KITTI trees, once for the module: the host
+    loop on ``mini_kitti`` ({"lines", "out"}) and the suite of both trees
+    ({"summary"}, per-sequence files beside ``out``)."""
+    d = tmp_path_factory.mktemp("jax_kitti")
+    host = str(d / "host.txt")
+    rc, lines = _printed(jax_main, ["odometry", "--dataset", str(mini_kitti), "--format", "kitti", "--sequence", "00",
+                                    "--out", host])
+    assert rc == 0
+    suite = str(d / "suite" / "suite.txt")
+    os.makedirs(os.path.dirname(suite))
+    rc, summary = _printed(jax_main, _suite_argv([mini_kitti, mini_kitti_b], suite, kitti=True))
+    assert rc == 0
+    return {"host": {"lines": lines, "out": host}, "suite": {"summary": summary[-1], "out": suite}}
+
+
+@pytest.mark.parametrize("mode", ["host", "fused"])
+def test_kitti_odometry_matches_jax(mini_kitti, jax_kitti, tmp_path, mode):
+    """`odometry --format kitti`: stereo PNGs, block-matched depth, tracking,
+    the trajectory file, and the ATE against the KITTI ground truth. The
+    fused scan is held to the JAX suite's run of the same tree (the suite
+    steps each sequence as the single scan does), which spares the module a
+    compile of the JAX single-sequence stereo scan."""
+    flags = [] if mode == "host" else ["--fused", "--parity", "--chunk", "4"]
+    out = str(tmp_path / "port.txt")
+    rc, printed = _printed(port_main, ["odometry", "--dataset", str(mini_kitti), "--format", "kitti", "--sequence",
+                                       "00", "--out", out, *flags, "--device", "cpu"])
+    assert rc == 0
+    if mode == "host":
+        want = jax_kitti["host"]["out"]
+    else:
+        want = jax_kitti["suite"]["summary"]["results"][0]["trajectory"]  # the first --dataset
+    _assert_trajectory_files_close(out, want, N_FRAMES)
+    first, res = printed[0], printed[-1]
+    assert first["frames"] == N_FRAMES and res["ate_rmse_m"] < 0.05, printed
+    assert sorted(res) == sorted(jax_kitti["host"]["lines"][-1])
+
+
+@pytest.mark.parametrize("fmt", ["tum", "kitti"])
+def test_suite_summary_matches_jax(request, jax_kitti, tmp_path, fmt):
+    """A repeated --dataset: one JSON summary, one trajectory file per
+    sequence and the suite's meta file, as the JAX CLI writes them."""
+    names = ("mini_dataset", "mini_dataset_b") if fmt == "tum" else ("mini_kitti", "mini_kitti_b")
+    roots = [request.getfixturevalue(n) for n in names]
+    frames = (N_FRAMES, 6) if fmt == "tum" else (N_FRAMES, N_FRAMES)
+    summaries = {}
+    for pkg, main, extra in (("port", port_main, ["--device", "cpu"]), ("jax", jax_main, [])):
+        if pkg == "jax" and fmt == "kitti":
+            summaries[pkg] = jax_kitti["suite"]["summary"]
+            assert os.path.exists(jax_kitti["suite"]["out"].replace("suite.txt", "suite_suite.meta.json"))
+            continue
+        out = str(tmp_path / pkg / "suite.txt")
+        os.makedirs(os.path.dirname(out))
+        rc, lines = _printed(main, _suite_argv(roots, out, kitti=fmt == "kitti") + extra)
+        assert rc == 0
+        summaries[pkg] = lines[-1]
+        assert os.path.exists(str(tmp_path / pkg / "suite_suite.meta.json"))
+    got, want = summaries["port"], summaries["jax"]
+    assert sorted(got) == sorted(want)
+    assert got["sequences"] == want["sequences"] == 2
+    assert got["frames"] == want["frames"] == sum(frames)
+    assert [e["frames"] for e in got["results"]] == [e["frames"] for e in want["results"]] == list(frames)
+    for eg, ej, n in zip(got["results"], want["results"], frames):
+        assert sorted(eg) == sorted(ej) and eg["dataset"] == ej["dataset"]
+        assert os.path.basename(eg["trajectory"]) == os.path.basename(ej["trajectory"])
+        _assert_trajectory_files_close(eg["trajectory"], ej["trajectory"], n)
+        assert eg["ate_rmse_m"] < 0.05, eg
+    meta = json.loads(open(str(tmp_path / "port" / "suite_suite.meta.json")).read())
+    assert meta["config"]["sampler"] == "gather" and meta["results"] == got["results"]
+
+
+def test_kitti_suite_with_two_baselines_exits_2(mini_kitti, mini_kitti_b, tmp_path, capsys):
+    other = tmp_path / "other_baseline"
+    shutil.copytree(mini_kitti_b, other)
+    calib = other / "sequences" / "00" / "calib.txt"
+    calib.write_text(calib.read_text().replace(f"{-FX * 0.54}", f"{-FX * 0.3}"))
+    argv = ["odometry", "--dataset", str(mini_kitti), "--dataset", str(other), "--format", "kitti",
+            "--out", str(tmp_path / "s.txt"), "--fused", "--device", "cpu"]
+    assert port_main(argv) == 2
+    assert "baseline" in capsys.readouterr().err

@@ -39,6 +39,7 @@ from vslam_tpu.core.se3 import SE3 as JSE3
 from vslam_tpu.io import synthetic
 from vslam_tpu_torch import interop
 from vslam_tpu_torch.alignment import fused_ne
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 H, W = 96, 128
 FX = 525.0 * W / 640

@@ -37,6 +37,7 @@ from vslam_tpu.solvers import SolverConfig as JSolverConfig
 from vslam_tpu_torch import interop
 from vslam_tpu_torch.alignment import fused_solve
 from vslam_tpu_torch.alignment import ic as tic
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 H, W = 96, 128
 FX = 525.0 * W / 640

@@ -6,6 +6,7 @@ contract's keys."""
 import ast
 import dataclasses
 import os
+import re
 import pathlib
 import subprocess
 import sys
@@ -29,7 +30,12 @@ from vslam_tpu_torch.eval import evaluate
 from vslam_tpu_torch.kalman import ekf_se3
 from vslam_tpu_torch.config import PipelineConfig
 from vslam_tpu_torch.odometry.pipeline import OdometryPipeline
+from vslam_tpu_torch.alignment.fa_se3 import RgbdAlignerFa
+from vslam_tpu_torch.alignment.icp import IcpAligner
+from vslam_tpu_torch.io.kitti import KittiDataset
 from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry, stage_stream
+from vslam_tpu_torch.parallel.sequences import MultiSequenceOdometry, sharded_scan_sequences
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "vslam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -53,7 +59,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 47  # the slices' modules, the host pipeline's and the CLI's among them
+    assert int(out.stdout.split()[-1]) >= 53  # the slices' modules, KITTI's, the suite's and the aligners' among them
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -153,6 +159,22 @@ _NP_FRAME = types.SimpleNamespace(intensity=[np.zeros((4, 6))], depth=[np.ones((
 _NP_EKF = types.SimpleNamespace(pose=_NP_POSE, velocity=np.zeros(6), P=np.eye(12), Q=np.eye(12))
 
 
+def _kitti_depth():
+    """A tensor on the device that `KittiDataset` block-matches on when none
+    is named (its depth reaches the caller as numpy)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        seq = pathlib.Path(d, "sequences", "00")
+        for sub in ("image_0", "image_1"):
+            (seq / sub).mkdir(parents=True)
+            (seq / sub / "000000.png").write_bytes(b"")
+        (seq / "times.txt").write_text("0.0\n")
+        (seq / "calib.txt").write_text("P0: 1 0 0 0 0 1 0 0 0 0 1 0\nP1: 1 0 0 -0.5 0 1 0 0 0 0 1 0\n")
+        ds = KittiDataset(d)
+        return torch.zeros(1, device=ds.device)
+
+
 def _cli_device() -> str:
     """The CLI's ``--device`` when none is given, the same on every command
     that tracks."""
@@ -179,11 +201,15 @@ def _cli_device() -> str:
         lambda: interop.ekf_state_from_numpy(_NP_EKF).P,
         lambda: OdometryPipeline(Camera(1.0, 1.0, 0.0, 0.0)).camera.fx,
         lambda: Camera.create(1.0, 1.0, 0.0, 0.0, device=_cli_device()).fx,
+        lambda: _kitti_depth(),
+        lambda: MultiSequenceOdometry([Camera(1.0, 1.0, 0.0, 0.0)] * 2).cameras.fx,
+        lambda: torch.zeros(1, device=RgbdAlignerFa().device),
+        lambda: torch.zeros(1, device=IcpAligner().device),
     ],
     ids=["Camera.create", "se3.identity", "ekf_se3.init", "stage_stream", "interop.camera_from_numpy",
          "interop.se3_from_numpy", "interop.frame_from_numpy", "interop.level_data_from_numpy",
          "interop.level_data_tuple_from_numpy", "interop.ekf_state_from_numpy", "OdometryPipeline",
-         "evaluate --device"],
+         "evaluate --device", "KittiDataset", "MultiSequenceOdometry", "RgbdAlignerFa", "IcpAligner"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device named, an entry point puts its tensors on CUDA, and
@@ -200,13 +226,24 @@ def test_entry_points_default_to_the_card(make):
     [
         ({"mapping": object()}, SequentialConfig(), "mapping backend"),
         ({"viz": object()}, SequentialConfig(), "live viewer"),
-        ({}, SequentialConfig(stereo_baseline=0.54), "stereo"),
+        ({"mappings": [object()]}, SequentialConfig(), "odometry/sequential_mapping.py"),
+        ({"mesh": object()}, SequentialConfig(), "torch.distributed"),
     ],
 )
 def test_unported_sequential_options_raise(kwargs, cfg, what):
+    """`SequentialOdometry` (mapping, viz) and `MultiSequenceOdometry`
+    (mappings, mesh) refuse what waits for an unported module, naming it."""
     cam = Camera.create(100.0, 100.0, 31.5, 23.5, device="cpu")
-    with pytest.raises(NotImplementedError, match=what):
-        SequentialOdometry(cam, cfg, **kwargs)
+    with pytest.raises(NotImplementedError, match=re.escape(what)):
+        if {"mappings", "mesh"} & set(kwargs):
+            MultiSequenceOdometry([cam], cfg, **kwargs)
+        else:
+            SequentialOdometry(cam, cfg, **kwargs)
+
+
+def test_sharded_scan_sequences_names_torch_distributed():
+    with pytest.raises(NotImplementedError, match="torch.distributed"):
+        sharded_scan_sequences(object(), SequentialConfig())
 
 
 @pytest.mark.parametrize(

@@ -35,6 +35,7 @@ from vslam_tpu_torch.core import se3 as tse3
 from vslam_tpu_torch.kalman import ekf_se3 as tekf
 from vslam_tpu_torch.kalman import filter as tfilter
 from vslam_tpu_torch.parallel.batched import tracking_step as t_tracking_step
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -21,6 +21,7 @@ from vslam_tpu.core.image import masked_median as j_masked_median
 from vslam_tpu.solvers import loss as jloss
 from vslam_tpu_torch.core.image import masked_median
 from vslam_tpu_torch.solvers import loss as tloss
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 N = 257
 MASKS = ["all", "some", "one", "none"]

@@ -39,6 +39,7 @@ from vslam_tpu_torch.odometry import motion_model as tmm
 from vslam_tpu_torch.odometry.keyframe import KeyFrameSelectionCustom
 from vslam_tpu_torch.odometry.map import HostFrame, Landmark, Map
 from vslam_tpu_torch.odometry.odometry import OdometryIcp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 H, W, FX = 96, 128, 110.0
 CX, CY = (W - 1) / 2, (H - 1) / 2

@@ -28,6 +28,7 @@ from vslam_tpu_torch.core.camera import Camera
 from vslam_tpu_torch.io import synthetic
 from vslam_tpu_torch.odometry.pipeline import OdometryPipeline
 from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 H, W, FX = 96, 128, 110.0
 CX, CY = (W - 1) / 2, (H - 1) / 2

@@ -19,6 +19,7 @@ from vslam_tpu.core.frame import create_frame as j_create_frame
 from vslam_tpu.io import synthetic
 from vslam_tpu_torch import interop
 from vslam_tpu_torch.alignment import ic as tic
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _frame(H, W, seed):

@@ -45,6 +45,7 @@ from vslam_tpu_torch.alignment import RgbdAligner as TRgbdAligner
 from vslam_tpu_torch.alignment import pallas_kernels
 from vslam_tpu_torch.parallel.batched import align_pairs as t_align_pairs
 from vslam_tpu_torch.utils import log as tlog
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 H, W = 96, 128
 FX = 525.0 * W / 640

@@ -24,6 +24,7 @@ from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 from vslam_tpu_torch.alignment import fused_solve
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 STEPS = 24
 

@@ -30,6 +30,7 @@ from vslam_tpu_torch.eval import metrics
 from vslam_tpu_torch.io import synthetic
 from vslam_tpu_torch.odometry import sequential as tseq
 from vslam_tpu_torch.utils.tree import tree_map
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 H, W, FX = 96, 128, 110.0
 N_FRAMES = 8

@@ -42,6 +42,7 @@ from vslam_tpu_torch import interop
 from vslam_tpu_torch.alignment import RgbdAligner as TRgbdAligner
 from vslam_tpu_torch.alignment import ic as tic
 from vslam_tpu_torch.utils import log as tlog
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 SINKS = ("ImageWarped", "Residual", "Weights")
 

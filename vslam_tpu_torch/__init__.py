@@ -10,8 +10,12 @@ stays the reference: every ported function is tested against the function
 it replaces. This package imports neither `jax` nor `vslam_tpu`.
 
 The entry points run on CUDA unless the caller names another device: the
-sequential scan (`odometry.sequential.SequentialOdometry`), the per-frame
-pipeline (`odometry.pipeline.OdometryPipeline`) and the evaluation CLI,
+sequential scan (`odometry.sequential.SequentialOdometry`, with stereo depth
+from `io.kitti` when given a baseline), suite mode
+(`parallel.sequences.MultiSequenceOdometry`), the per-frame pipeline
+(`odometry.pipeline.OdometryPipeline`), the KITTI reader
+(`io.kitti.KittiDataset`), the secondary aligners (`alignment.fa_se3.
+RgbdAlignerFa`, `alignment.icp.IcpAligner`) and the evaluation CLI,
 `python -m vslam_tpu_torch.eval.evaluate` (``--device``).
 """
 

@@ -1,8 +1,8 @@
 """Core geometry and image numerics (port of `vslam_tpu.core`)."""
 
-from . import camera, frame, image, lie_np, se3
+from . import camera, frame, image, lie_np, pose_cov, se3
 from .camera import Camera
 from .frame import Frame, create_frame
 from .se3 import SE3
 
-__all__ = ["camera", "frame", "image", "lie_np", "se3", "Camera", "Frame", "SE3", "create_frame"]
+__all__ = ["camera", "frame", "image", "lie_np", "pose_cov", "se3", "Camera", "Frame", "SE3", "create_frame"]

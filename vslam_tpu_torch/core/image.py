@@ -86,22 +86,30 @@ def _pad_reflect(img: torch.Tensor, p: int, dim: int) -> torch.Tensor:
 
 
 def _sep_pass(img: torch.Tensor, taps, dim: int) -> torch.Tensor:
-    """One axis of a separable correlation as shifted-slice adds; the input
-    is already padded by len(taps)//2 along ``dim``."""
+    """One axis of a separable correlation as shifted-slice adds, summed in
+    place into a fresh tensor (so a large input, such as a stereo cost
+    volume, holds one partial sum, not two); the input is already padded by
+    len(taps)//2 along ``dim``."""
     n = img.shape[dim] - (len(taps) - 1)
     out = None
     for i, t in enumerate(taps):
         if t == 0.0:
             continue
         sl = img.narrow(dim, i, n)
-        term = sl if t == 1.0 else t * sl
-        out = term if out is None else out + term
+        if out is None:
+            out = sl.clone() if t == 1.0 else t * sl
+        else:
+            out += sl if t == 1.0 else t * sl
     return out
 
 
 def _sep_conv_reflect(img: torch.Tensor, ky, kx) -> torch.Tensor:
-    padded = _pad_reflect(_pad_reflect(img, len(ky) // 2, -2), len(kx) // 2, -1)
-    return _sep_pass(_sep_pass(padded, ky, -2), kx, -1)
+    # rebinding ``img`` frees each stage as the next is made: a temporary
+    # input (a stereo cost volume) is gone once padded, the padded copy once
+    # the rows are summed
+    img = _pad_reflect(_pad_reflect(img, len(ky) // 2, -2), len(kx) // 2, -1)
+    img = _sep_pass(img, ky, -2)
+    return _sep_pass(img, kx, -1)
 
 
 def gaussian_blur_3x3(img: torch.Tensor) -> torch.Tensor:

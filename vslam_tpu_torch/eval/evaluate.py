@@ -8,10 +8,12 @@ Port of `vslam_tpu.eval.evaluate`, run as
 with the JAX CLI's subcommands, flags, JSON lines and exit codes, plus
 ``--device`` (default cuda) on the commands that track:
 
-  odometry   run VO over a TUM sequence directory -> TUM trajectory file
-             (the NodeReplayer/NodeRgbdAlignment/NodeResultWriter pipeline in
-             one deterministic process): the host pipeline, or with --fused
-             the sequential scan
+  odometry   run VO over a TUM sequence directory or a KITTI root (--format
+             kitti: stereo depth by block matching on the device) -> TUM
+             trajectory file (the NodeReplayer/NodeRgbdAlignment/
+             NodeResultWriter pipeline in one deterministic process): the
+             host pipeline, or with --fused the sequential scan; a repeated
+             --dataset tracks every sequence in lock-step (suite mode)
   evaluate   ATE + RPE of an estimated trajectory vs ground truth, writing
              rpe_summary/ate_summary like the reference's script
              (script/evaluate.py:60-75)
@@ -21,9 +23,8 @@ with the JAX CLI's subcommands, flags, JSON lines and exit codes, plus
              published fr2_desk budgets
 
 The options that need modules not ported yet raise NotImplementedError
-naming them: --format kitti (io/kitti.py), --mapping
-(odometry/sequential_mapping.py), a repeated --dataset
-(parallel/sequences.py) and --live-viz (viz/live.py).
+naming them, in suite mode too: --mapping (odometry/sequential_mapping.py)
+and --live-viz (viz/live.py).
 
 Provenance: like the reference's meta.yaml (script/evaluate.py:51-55), the
 odometry command records config + git sha next to the trajectory.
@@ -46,12 +47,8 @@ def _unported(what: str, module: str):
 
 def _refuse_unported(args) -> None:
     """Raise for the options whose modules the port does not have yet."""
-    if getattr(args, "format", "tum") == "kitti":
-        raise _unported("--format kitti", "io/kitti.py")
     if getattr(args, "mapping", False):
         raise _unported("--mapping (the mapping backend)", "odometry/sequential_mapping.py, features/ and ba/")
-    if isinstance(getattr(args, "dataset", None), list) and len(args.dataset) > 1:
-        raise _unported("a repeated --dataset (suite mode)", "parallel/sequences.py")
     if getattr(args, "live_viz", None) is not None:
         raise _unported("--live-viz (the live viewer)", "viz/live.py")
 
@@ -69,8 +66,16 @@ def _cmd_odometry(args) -> int:
     configure(args.log_level)
     log = get_logger("system")
     cfg = load_yaml_config(args.config) if args.config else PipelineConfig()
+    if len(args.dataset) > 1:
+        return _cmd_odometry_multi(args, cfg, log)
     args.dataset = args.dataset[0]
-    ds = tum.TumDataset(args.dataset, max_frames=args.max_frames)
+    if args.format == "kitti":
+        from ..io.kitti import KittiDataset
+
+        ds = KittiDataset(args.dataset, sequence=args.sequence, max_frames=args.max_frames,
+                          device=args.device)
+    else:
+        ds = tum.TumDataset(args.dataset, max_frames=args.max_frames)
     if args.intrinsics:
         fx, fy, cx, cy = (float(x) for x in args.intrinsics.split(","))
     else:
@@ -80,32 +85,22 @@ def _cmd_odometry(args) -> int:
 
     if args.fused:
         # the sequential scan (one fetch per chunk; odometry only)
-        from ..odometry.sequential import SequentialConfig, SequentialOdometry
+        from ..odometry.sequential import SequentialOdometry
 
-        if not args.parity and cfg.sampler == "gather":
-            # production tracking profile (the bench configuration): the
-            # whole-level in-kernel GN solver on a 2048-point budget — see
-            # bench.py's accuracy gate. --parity restores the reference's
-            # dense gather semantics.
-            cfg = dataclasses.replace(
-                cfg, sampler="fused_gn", image_dtype="bfloat16", features_max_points=2048
-            )
+        cfg = _production_profile(cfg, args)
         if cfg.enable_mapping or cfg.enable_loop_closure:
             raise _unported("the mapping backend", "odometry/sequential_mapping.py, features/ and ba/")
-        seq_cfg = SequentialConfig(
-            alignment=cfg.alignment_config(),
+        if args.format == "kitti":
+            # raw u8 stereo pairs in; block-matching depth on the device
+            # inside the scan step
+            stream, seq_cfg = ds.iter_stereo(), _seq_config(cfg, stereo_baseline=ds.baseline)
+        else:
             # native u8/u16 transport: the device converts (depth_scale);
             # the host->device link moves the sensor's own bit depth
-            depth_scale=tum.DEPTH_SCALE,
-            prediction_model=cfg.prediction_model,
-            n_levels=cfg.pyramid_levels,
-            kf_period=cfg.keyframe_selection_idx_period,
-            kf_max_translation=cfg.keyframe_selection_max_translation,
-            include_key_frame=cfg.include_key_frame,
-        )
+            stream, seq_cfg = ds.iter_raw(), _seq_config(cfg, depth_scale=tum.DEPTH_SCALE)
         odo = SequentialOdometry(camera, seq_cfg, chunk=args.chunk)
         t0 = time.perf_counter()
-        results = odo.run(ds.iter_raw())
+        results = odo.run(stream)
         elapsed = time.perf_counter() - t0
         n = len(results)
         est = {t / 1e9: np.linalg.inv(p) for t, p, _ in results}
@@ -114,11 +109,13 @@ def _cmd_odometry(args) -> int:
         from ..odometry.pipeline import device_prefetch
 
         pipeline = OdometryPipeline(camera, cfg, device=args.device)
-        # native u8/u16 transport + device prefetch: the transfer of frame
-        # i+1 overlaps the solve of frame i
+        # native u8/u16 transport (KITTI: f32 left image and stereo depth in
+        # metres) + device prefetch: the transfer of frame i+1 overlaps the
+        # solve of frame i
+        frame_iter = ds.iter_raw() if args.format == "tum" else iter(ds)
         t0 = time.perf_counter()
         n = 0
-        for t_ns, intensity, depth in device_prefetch(ds.iter_raw(), device=args.device):
+        for t_ns, intensity, depth in device_prefetch(frame_iter, device=args.device):
             pipeline.process_frame(t_ns, intensity, depth)
             n += 1
             if n % 50 == 0:
@@ -153,6 +150,128 @@ def _cmd_odometry(args) -> int:
 
         res = metrics.summarize(ds.groundtruth, est)
         print(json.dumps(res))
+    return 0
+
+
+def _seq_config(cfg, stereo_baseline: float = 0.0, depth_scale: float = 1.0):
+    """The sequential scan's configuration from a pipeline configuration."""
+    from ..odometry.sequential import SequentialConfig
+
+    return SequentialConfig(
+        alignment=cfg.alignment_config(),
+        stereo_baseline=stereo_baseline,
+        depth_scale=depth_scale,
+        prediction_model=cfg.prediction_model,
+        n_levels=cfg.pyramid_levels,
+        kf_period=cfg.keyframe_selection_idx_period,
+        kf_max_translation=cfg.keyframe_selection_max_translation,
+        include_key_frame=cfg.include_key_frame,
+    )
+
+
+def _production_profile(cfg, args):
+    """The fused paths' tracking profile unless --parity or a configured
+    sampler says otherwise: the whole-level GN kernel on a 2048-point
+    budget from a bf16 image copy (the bench configuration). --parity keeps
+    the reference's dense gather semantics."""
+    if not args.parity and cfg.sampler == "gather":
+        cfg = dataclasses.replace(cfg, sampler="fused_gn", image_dtype="bfloat16", features_max_points=2048)
+    return cfg
+
+
+def _unique_names(roots) -> list:
+    """Per-sequence output names from dataset roots: the basename, with a
+    .N suffix where two roots share a leaf directory name (/runA/kitti and
+    /runB/kitti), so no two sequences write the same trajectory file."""
+    names = [os.path.basename(os.path.normpath(r)) for r in roots]
+    dup = {n for n in names if names.count(n) > 1}
+    seen: dict = {}
+    out = []
+    for n in names:
+        if n in dup:
+            seen[n] = seen.get(n, 0) + 1
+            out.append(f"{n}.{seen[n]}")
+        else:
+            out.append(n)
+    return out
+
+
+def _cmd_odometry_multi(args, cfg, log) -> int:
+    """Suite mode: S TUM sequences or KITTI roots advanced in lock-step by
+    `parallel.sequences.MultiSequenceOdometry`, one dispatch per chunk for
+    every sequence (the reference's driver loops sequences one after the
+    other, script/evaluate.py). The fused path only; per-sequence
+    intrinsics are kept. Exit 2 when KITTI roots disagree on the stereo
+    baseline (one configuration serves all sequences)."""
+    import numpy as np
+
+    from ..core.camera import Camera
+    from ..io import tum
+    from ..parallel.sequences import MultiSequenceOdometry
+
+    if not args.fused:
+        log.warning("multiple --dataset implies --fused (the batched scan)")
+    cfg = _production_profile(cfg, args)
+    if cfg.enable_mapping or cfg.enable_loop_closure:
+        raise _unported("the mapping backend", "odometry/sequential_mapping.py, features/ and ba/")
+    if args.format == "kitti":
+        # each --dataset is a KITTI root; --sequence applies to all
+        from ..io.kitti import KittiDataset
+
+        datasets = [KittiDataset(d, sequence=args.sequence, max_frames=args.max_frames, device=args.device)
+                    for d in args.dataset]
+        baselines = {round(ds.baseline, 6) for ds in datasets}
+        if len(baselines) > 1:
+            print(f"KITTI suite needs one shared stereo baseline, got {baselines} (one "
+                  "configuration serves every sequence of the batched scan)", file=sys.stderr)
+            return 2
+        seq_cfg = _seq_config(cfg, stereo_baseline=datasets[0].baseline)
+        streams = [ds.iter_stereo() for ds in datasets]
+    else:
+        datasets = [tum.TumDataset(d, max_frames=args.max_frames) for d in args.dataset]
+        seq_cfg = _seq_config(cfg, depth_scale=tum.DEPTH_SCALE)
+        streams = [ds.iter_raw() for ds in datasets]
+    if args.intrinsics:
+        intrinsics = [tuple(float(x) for x in args.intrinsics.split(","))] * len(datasets)
+    else:
+        intrinsics = [ds.intrinsics() for ds in datasets]
+    cameras = [Camera.create(*k, device=args.device) for k in intrinsics]
+    odo = MultiSequenceOdometry(cameras, seq_cfg, chunk=args.chunk)
+    log.warning("tracking %d sequences (%s frames) in lock-step", len(datasets),
+                "/".join(str(len(d)) for d in datasets))
+    t0 = time.perf_counter()
+    all_results = odo.run(streams)
+    elapsed = time.perf_counter() - t0
+    n_total = sum(len(r) for r in all_results)
+
+    out_prefix = (args.out or "trajectory.txt").removesuffix(".txt")
+    summary = {
+        "sequences": len(datasets),
+        "frames": n_total,
+        "fps": round(n_total / elapsed, 2),
+        "git_sha": _git_sha(),
+    }
+    per_seq = []
+    for name, ds, results in zip(_unique_names([ds.root for ds in datasets]), datasets, all_results):
+        est = {t / 1e9: np.linalg.inv(p) for t, p, _ in results}
+        covs = {t / 1e9: c for t, _, c in results}
+        out = f"{out_prefix}_{name}.txt"
+        tum.write_trajectory(out, est, covs=covs)
+        entry = {"dataset": name, "frames": len(results), "trajectory": out}
+        if ds.groundtruth and not args.no_eval:
+            from . import metrics
+
+            try:
+                entry.update(metrics.summarize(ds.groundtruth, est))
+            except ValueError as exc:
+                # a sequence too short for any RPE pair: record it per
+                # sequence instead of losing the whole summary
+                entry["eval_error"] = str(exc)
+        per_seq.append(entry)
+    summary["results"] = per_seq
+    with open(out_prefix + "_suite.meta.json", "w") as f:
+        json.dump({**summary, "config": dataclasses.asdict(cfg)}, f, indent=2)
+    print(json.dumps(summary))
     return 0
 
 
@@ -454,8 +573,8 @@ def parser() -> argparse.ArgumentParser:
         "--dataset",
         required=True,
         action="append",
-        help="sequence directory; repeat to batch several sequences through "
-        "the multi-sequence fused scan (not ported yet: parallel/sequences.py)",
+        help="sequence directory (a KITTI root with --format kitti); repeat to "
+        "track several sequences in lock-step through the multi-sequence fused scan",
     )
     p.add_argument("--format", choices=["tum", "kitti"], default="tum")
     p.add_argument("--sequence", default="00", help="KITTI sequence id")

@@ -16,13 +16,19 @@ frames; the `live` masks of `scan_odometry` serve sequences batched along S
 that end at different frames.
 
 `_step` carries a leading sequence axis S on every tensor (S = 1 for one
-stream), so batching sequences is a matter of stacking their states.
+stream), so batching sequences is a matter of stacking their states
+(`parallel.sequences`).
+
+With ``stereo_baseline > 0`` a stream item's second image is the right
+image of a rectified pair (uint8) and depth comes from `io.kitti.
+stereo_depth` on the device inside the step; ``depth_scale`` does not apply
+to it.
 
     odo = SequentialOdometry(Camera.create(fx, fy, cx, cy), cfg, chunk=32)  # on CUDA
     trajectory = odo.run(stream)  # [(t_ns, world->cam 4x4 f64, cov 6x6), ...]
 
-The mapping backend, the live viewer and stereo depth are not ported yet and
-raise NotImplementedError.
+The mapping backend and the live viewer are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ class SequentialConfig:
     # metres = raw * depth_scale: frames travel in their sensor dtype (uint8
     # intensity, uint16 depth at 1/5000 m for TUM) and widen on the device
     depth_scale: float = 1.0
-    stereo_baseline: float = 0.0  # > 0: stereo depth, not ported yet
+    stereo_baseline: float = 0.0  # > 0: the second image is the right one of a stereo pair
     stereo_max_disparity: int = 96
     n_levels: int = 3
     prediction_model: str = "ConstantMotion"  # NoMotion | ConstantMotion | Kalman
@@ -84,13 +90,6 @@ class SequentialState(NamedTuple):
     speed: torch.Tensor  # (S, 6) twist / s
     kf_ctr: torch.Tensor  # (S,) int32 frames since the keyframe
     ekf: ekf_se3.EkfState  # used when prediction_model == "Kalman"
-
-
-def _no_stereo(cfg: SequentialConfig) -> None:
-    if cfg.stereo_baseline > 0.0:
-        raise NotImplementedError(
-            "stereo depth (stereo_baseline > 0) is not ported yet: it comes with io/kitti.py"
-        )
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:
@@ -118,26 +117,46 @@ def _device_camera(camera: Camera, device) -> Camera:
     return Camera(*(torch.as_tensor(c, dtype=torch.float32, device=device) for c in camera))
 
 
+def _sensor_frame(intensity: torch.Tensor, second: torch.Tensor, camera: Camera,
+                  cfg: SequentialConfig):
+    """(S, H, W) sensor images on the device -> the current frame's pyramid.
+    ``second`` is depth counts, or with ``stereo_baseline > 0`` the right
+    image, block-matched against the left with each sequence's fx."""
+    intensity = _sensor_f32(intensity)
+    if cfg.stereo_baseline > 0.0:
+        from ..io.kitti import stereo_depth
+
+        depth = stereo_depth(intensity, _sensor_f32(second), camera.fx, cfg.stereo_baseline,
+                             max_disparity=cfg.stereo_max_disparity)
+    else:
+        depth = _sensor_f32(second) * cfg.depth_scale
+    return create_frame(intensity, depth, camera, n_levels=cfg.n_levels)
+
+
 def init_state(intensity: np.ndarray, depth: np.ndarray, camera: Camera,
                cfg: SequentialConfig) -> SequentialState:
     """The first frame (H, W host arrays in a sensor dtype) starts the pose
     chain at the identity and is the first keyframe (Odometry.cpp:33-35).
     The state, with S = 1, lives on the camera's device."""
-    _no_stereo(cfg)
     device = camera.fx.device
-    camera = _device_camera(camera, device)
-    intensity = _sensor_f32(_upload(intensity, device))[None]
-    depth = _sensor_f32(_upload(depth, device))[None] * cfg.depth_scale
-    frame = create_frame(intensity, depth, camera, n_levels=cfg.n_levels)
-    data = ic.precompute_frame(frame, cfg.alignment)
-    pose = se3.identity((1,), device=device)
+    return _init_batched(_upload(intensity, device)[None], _upload(depth, device)[None],
+                         _device_camera(camera, device), cfg)
+
+
+def _init_batched(intensity: torch.Tensor, depth: torch.Tensor, camera: Camera,
+                  cfg: SequentialConfig) -> SequentialState:
+    """`init_state` for S first frames at once: (S, H, W) device tensors in
+    a sensor dtype, camera leaves () or (S,) on the same device."""
+    S, device = intensity.shape[0], intensity.device
+    data = ic.precompute_frame(_sensor_frame(intensity, depth, camera, cfg), cfg.alignment)
+    pose = se3.identity((S,), device=device)
     return SequentialState(
         kf_data=data,
         last_data=data,
         pose_kf=pose,
         pose_last=pose,
-        speed=torch.zeros(1, 6, device=device),
-        kf_ctr=torch.zeros(1, dtype=torch.int32, device=device),
+        speed=torch.zeros(S, 6, device=device),
+        kf_ctr=torch.zeros(S, dtype=torch.int32, device=device),
         ekf=ekf_se3.init(pose=pose, process_noise=cfg.ekf_process_noise),
     )
 
@@ -203,9 +222,7 @@ def _step(state: SequentialState, intensity, depth, dt, live, camera: Camera,
     re-emits the last pose; live None means every slot is live, and skips
     the selects. Returns (state, (pose (S,), valid (S,), cov (S, 6, 6),
     is_kf (S,)))."""
-    intensity = _sensor_f32(intensity)
-    depth = _sensor_f32(depth) * cfg.depth_scale
-    cur = create_frame(intensity, depth, camera, n_levels=cfg.n_levels)
+    cur = _sensor_frame(intensity, depth, camera, cfg)
 
     if cfg.prediction_model == "Kalman":
         # EKF predict (MotionPrediction.cpp:57-81)
@@ -303,7 +320,6 @@ class SequentialOdometry:
             )
         if viz is not None:
             raise NotImplementedError("the live viewer is not ported yet: it comes with viz/live.py")
-        _no_stereo(cfg)
         self.device = camera.fx.device
         self.camera = _device_camera(camera, self.device)
         self.cfg = cfg
