@@ -99,12 +99,16 @@ Phases, each ending in torch.cuda.synchronize():
                 (kernel 1b), `fused` quadratic (kernel 3) and Huber (kernel
                 2), and `mxu` (kernel 4), one launch per evaluated
                 iteration, and 16 frames of the default `gather`
-                configuration, which launches no kernel; ATE < 0.01 m each
+                configuration, which launches no kernel; ATE < 0.01 m each;
+                16 frames each with `enable_mapping` and with
+                `enable_loop_closure` (the strict loop), ATE < 0.01 m
  18. CLI      — `python -m vslam_tpu_torch.eval.evaluate synthetic` at
-                480x640 on the host loop and with --fused (ATE < 0.01 m),
+                480x640 on the host loop and with --fused, each with and
+                without --mapping (ATE < 0.01 m, landmarks with --mapping),
                 then `evaluate`, `ate` and `rpe` on phase 17's trajectory
-                (exit 0), and `odometry` on a TUM directory where PIL is
-                importable to write its PNG files (the output says which)
+                (exit 0), and `odometry` on a TUM directory of PNG files
+                (written here without PIL) where the port can read them
+                (its native decoder or PIL; the output says which)
  19. sizes    — the robust entry on the 64 pairs' dense level 0 (F = 2,
                 307,200 points a frame) with its residual cache in global
                 scratch, Huber and Tukey, and the per-iteration sampler at
@@ -136,10 +140,42 @@ Phases, each ending in torch.cuda.synchronize():
                 test's three-plane scene, `align_optical_flow` and
                 `align_affine` (both methods) on the JAX tests' warped
                 smooth image
+ 23. slam     — `SequentialOdometry` with `ChunkMappingBackend(enable_ba=
+                True)` over 64 noisy 480x640 frames (`bench.py:787-916`):
+                mapping off, a warm-up whose worker thread must touch the
+                card 0 times (compute_device "auto"; CUDA ops counted by a
+                dispatch mode on that thread), streamed and the best of 2
+                `run_staged`, ATE < 0.01 m each; frames/s beside mapping
+                off, the backend's host ms per chunk by stage and its share
+                of the wall, the staged replay with compute_device
+                "default", the detection's peak memory; kernel 1 at each
+                level's inputs bit for bit
+ 24. slam_drift — 256 frames of the box orbit rendered on the card
+                (`render_boxes_batch`, `bench.py:919-1045`), Huber nearest
+                `fused_gn` (kernel 1b on the main path), BA + loop closure
+                with pose_write_back "off": the JAX gate (closures >= 1,
+                mapping-off ATE > 0.01 m, corrected < 0.6 x, online <= 1.02
+                x); kernel 1b at each level's inputs bit for bit
+ 25. kitti_loop — 256 stereo pairs at 1241x376 of the street-scale loop
+                rendered on the card (`bench.py:1165-1300`), the KITTI
+                profile, BA + loop closure: the JAX gate (closures >= 1,
+                mapping-off ATE > 0.02 m, corrected < 0.6 x); the graph
+                solve's times and nodes, the stereo detection's peak memory;
+                kernel 1 at each level's inputs bit for bit
+ 26. graph    — the 900-node five-loop chain of the JAX test, solved on
+                the card by PCG and by the dense 5400 x 5400 solve: gated in
+                f64 (initial chi2 within rtol 1e-5, PCG's final chi2 < 0.1 x
+                its initial, translations within 5e-3); the f32 solves at
+                the production CG caps reported beside it (an open fault:
+                PCG stalls there, as the JAX function does); both times, the
+                CG iterations
+Every phase that runs a mapping backend (17, 18, 23-25) fails on any
+warning of the "mapping" logger (its graceful degradation hides nothing).
 Phase 18's second half runs after phase 21, on its frames and phase 20's:
-`odometry --format kitti` on a KITTI root of 8 pairs (host loop and
---fused), and a repeated --dataset on two TUM directories and on two KITTI
-roots, each exit 0 with the ATE printed, where PIL can write the PNG files.
+`odometry --format kitti` on a KITTI root of 8 pairs (host loop, --fused,
+--fused --mapping), and a repeated --dataset on two TUM directories (with
+and without --mapping) and on two KITTI roots, each exit 0 with the ATE
+printed, where the port can read PNG files.
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for its work (`_bound`); the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script
@@ -1567,6 +1603,7 @@ def _mxu_alternated(by_width, card, log):
 # the default (gather) configuration's run, and of the profiled window
 PIPE_SHORT_FRAMES = 8
 PIPE_GATHER_FRAMES = 16
+PIPE_MAPPING_FRAMES = 16
 PIPE_PROFILED_FRAMES = 16
 # phase 18: frames of each synthetic CLI run
 CLI_FRAMES = 16
@@ -1748,6 +1785,19 @@ def _pipeline(poses, stream, device, card, log):
         f"{len(gather) / wall:.2f} frames/s {card}")
     if any(all_counts) or not ate < 0.01:
         raise AssertionError(f"phase 17 gather: launches {all_counts} or ATE {ate} off")
+
+    mapped = stream[:PIPE_MAPPING_FRAMES]
+    for option in ("enable_mapping", "enable_loop_closure"):
+        with _mapping_warnings(f"phase 17 {option}"):
+            traj, kfs, wall, _, _ = _pipeline_run(dataclasses.replace(cfg, **{option: True}), mapped, None, device)
+        launches = _launches()
+        counts["solve_level_fused"] += launches[0]
+        ate = _trajectory_ate(poses[:len(mapped)], traj)
+        log(f"phase 17 pipeline with {option}: {len(mapped)} frames (the strict loop), keyframes {len(kfs)}, "
+            f"whole-level launches {launches} (expected ({N_LEVELS * (len(mapped) - 1)}, 0)); ATE {ate:.5f} m "
+            f"(gate 0.01); {len(mapped) / wall:.2f} frames/s {card}")
+        if launches != (N_LEVELS * (len(mapped) - 1), 0) or not ate < 0.01:
+            raise AssertionError(f"phase 17 {option}: launches {launches} or ATE {ate} off")
     return counts, tp
 
 
@@ -1768,22 +1818,24 @@ def _cli(poses, traj, stream, card, log):
     (ATE < 0.01 m); `evaluate`, `ate` and `rpe` on phase 17's pipelined
     trajectory and its ground truth (exit 0); `odometry` on a TUM directory
     where PIL is importable to write its PNGs."""
-    import importlib.util
     import os
     import tempfile
 
     from vslam_tpu_torch.core import lie_np
     from vslam_tpu_torch.io import tum
 
-    for flags in ([], ["--fused"]):
+    for flags in ([], ["--fused"], ["--mapping"], ["--fused", "--mapping"]):
         t0 = time.perf_counter()
-        rc, lines = _cli_json(["synthetic", "--frames", str(CLI_FRAMES), "--height", str(H), "--width", str(W),
-                               "--fx", str(FX), *flags])
+        with _mapping_warnings(f"phase 18 synthetic {flags}"):
+            rc, lines = _cli_json(["synthetic", "--frames", str(CLI_FRAMES), "--height", str(H), "--width", str(W),
+                                   "--fx", str(FX), *flags])
         (res,) = [json.loads(line) for line in lines if line.startswith("{")]
         log(f"phase 18 CLI synthetic {' '.join(flags) or '(host loop)'}: exit {rc}, {res} "
             f"({time.perf_counter() - t0:.1f} s with the rendering) {card}")
         if rc != 0 or not res["ate_rmse_m"] < 0.01 or res["frames"] != CLI_FRAMES:
             raise AssertionError(f"phase 18 synthetic {flags}: exit {rc}, {res}")
+        if "--mapping" in flags and not res["landmarks"] > 0:
+            raise AssertionError(f"phase 18 synthetic {flags}: no landmarks")
     with tempfile.TemporaryDirectory() as d:
         gt, est = os.path.join(d, "groundtruth.txt"), os.path.join(d, "trajectory.txt")
         tum.write_trajectory(gt, {i * DT_NS / 1e9: lie_np.inv(p) for i, p in enumerate(poses)})
@@ -1794,9 +1846,9 @@ def _cli(poses, traj, stream, card, log):
             log(f"phase 18 CLI {' '.join(argv)}: exit {rc}: {' | '.join(lines)}")
             if rc != 0:
                 raise AssertionError(f"phase 18 {argv[0]}: exit {rc}")
-        if importlib.util.find_spec("PIL") is None:
-            log("phase 18 CLI odometry on a TUM directory: not run, PIL is not importable here to write "
-                "its PNG files")
+        if not _png_reader():
+            log("phase 18 CLI odometry on a TUM directory: not run, no PNG reader here (the native decoder "
+                "did not build and PIL is not importable)")
             return
         root = os.path.join(d, "tum")
         _write_tum(root, poses, stream[:PIPE_SHORT_FRAMES])
@@ -2130,12 +2182,40 @@ def _suite(poses, streams, card, log):
     return launches + launches_r, err
 
 
+def _write_png(path, img):
+    """An 8- or 16-bit gray PNG (filter None, one zlib stream), written
+    without PIL."""
+    import struct
+    import zlib
+
+    img = np.ascontiguousarray(img)
+    h, w = img.shape
+    bits = 16 if img.dtype == np.uint16 else 8
+    raw = img.astype(">u2" if bits == 16 else np.uint8)
+    rows = b"".join(b"\x00" + raw[r].tobytes() for r in range(h))
+
+    def chunk(tag, data):
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def _png_reader() -> bool:
+    """Whether the port can read PNG files here: its native decoder builds
+    (g++ and zlib), or PIL is importable."""
+    import importlib.util
+
+    from vslam_tpu_torch.io import tum
+
+    return tum._use_native() or importlib.util.find_spec("PIL") is not None
+
+
 def _write_tum(root, poses, stream):
     """A TUM directory of ``stream``'s (t_ns, uint8, uint16) frames, PNG,
     with ``poses`` as its ground truth."""
     import os
-
-    from PIL import Image
 
     from vslam_tpu_torch.core import lie_np
     from vslam_tpu_torch.io import tum
@@ -2145,8 +2225,8 @@ def _write_tum(root, poses, stream):
     rgb, depth = [], []
     for i, (_, gray, d16) in enumerate(stream):
         t = 1000.0 + i / 30.0
-        Image.fromarray(gray).save(os.path.join(root, "rgb", f"{t:.6f}.png"))
-        Image.fromarray(d16).save(os.path.join(root, "depth", f"{t:.6f}.png"))
+        _write_png(os.path.join(root, "rgb", f"{t:.6f}.png"), gray)
+        _write_png(os.path.join(root, "depth", f"{t:.6f}.png"), d16)
         rgb.append(f"{t:.6f} rgb/{t:.6f}.png")
         depth.append(f"{t:.6f} depth/{t:.6f}.png")
     for name, rows in (("rgb.txt", rgb), ("depth.txt", depth)):
@@ -2161,8 +2241,6 @@ def _write_kitti(root, poses, stream):
     with the bench's calibration, times and ground truth."""
     import os
 
-    from PIL import Image
-
     from vslam_tpu_torch.core import lie_np
 
     seq = os.path.join(root, "sequences", "00")
@@ -2170,8 +2248,8 @@ def _write_kitti(root, poses, stream):
         os.makedirs(os.path.join(seq, sub))
     os.makedirs(os.path.join(root, "poses"))
     for i, (_, left, right) in enumerate(stream):
-        Image.fromarray(left).save(os.path.join(seq, "image_0", f"{i:06d}.png"))
-        Image.fromarray(right).save(os.path.join(seq, "image_1", f"{i:06d}.png"))
+        _write_png(os.path.join(seq, "image_0", f"{i:06d}.png"), left)
+        _write_png(os.path.join(seq, "image_1", f"{i:06d}.png"), right)
     fx, fy, cx, cy = KITTI_CAM
     with open(os.path.join(seq, "calib.txt"), "w") as f:
         f.write(f"P0: {fx} 0 {cx} 0 0 {fy} {cy} 0 0 0 1 0\n"
@@ -2188,14 +2266,15 @@ def _cli_kitti_suites(tum_sets, kitti_poses, kitti_stream, card, log):
     repeated --dataset on two TUM directories (the odometry and robust
     profiles' first frames) and on two KITTI roots (the KITTI stream's
     first and second PIPE_SHORT_FRAMES pairs), each exit 0 with the ATE
-    printed. Needs PIL to write the PNG files (the output says where it is
-    missing). Returns the whole-level launches."""
-    import importlib.util
+    printed; then the fused KITTI run and the TUM suite with --mapping.
+    Needs a PNG reader (the output says where there is none). Returns the
+    whole-level launches."""
     import os
     import tempfile
 
-    if importlib.util.find_spec("PIL") is None:
-        log("phase 18 CLI on KITTI roots and suites: not run, PIL is not importable here to write PNG files")
+    if not _png_reader():
+        log("phase 18 CLI on KITTI roots and suites: not run, no PNG reader here (the native decoder did not "
+            "build and PIL is not importable)")
         return 0
     n = PIPE_SHORT_FRAMES
     launches = 0
@@ -2212,11 +2291,16 @@ def _cli_kitti_suites(tum_sets, kitti_poses, kitti_stream, card, log):
                 ("odometry suite of two TUM directories",
                  ["--dataset", tums[0], "--dataset", tums[1], "--intrinsics", tum_k, "--fused"]),
                 ("odometry suite of two KITTI roots",
-                 ["--dataset", kittis[0], "--dataset", kittis[1], "--format", "kitti", "--fused"])]
+                 ["--dataset", kittis[0], "--dataset", kittis[1], "--format", "kitti", "--fused"]),
+                ("odometry --format kitti --fused --mapping",
+                 ["--dataset", kittis[0], "--format", "kitti", "--fused", "--mapping"]),
+                ("odometry suite of two TUM directories --mapping",
+                 ["--dataset", tums[0], "--dataset", tums[1], "--intrinsics", tum_k, "--fused", "--mapping"])]
         for label, argv in runs:
             _reset_launches()
             t0 = time.perf_counter()
-            rc, lines = _cli_json(["odometry", *argv, "--out", os.path.join(d, "out.txt"), "--chunk", "4"])
+            with _mapping_warnings(f"phase 18 {label}"):
+                rc, lines = _cli_json(["odometry", *argv, "--out", os.path.join(d, "out.txt"), "--chunk", "4"])
             _sync()
             launches += _launches()[0]
             res = [json.loads(line) for line in lines if line.startswith("{")]
@@ -2420,6 +2504,575 @@ def _size_repairs(frames, xis, log):
     if err["sample"] != 0.0 or not bool(got[1][-1].any()):
         raise AssertionError(f"phase 19 sampler: difference {err['sample']}")
     return {"solve_level_fused_robust": max(err["Huber"], err["Tukey"]), "fused_level_sample": err["sample"]}
+
+
+# phase 23: full SLAM on the noisy smooth stream, `bench.py:787-916` unchanged
+SLAM_FRAMES = 64
+SLAM_CHUNK = 16
+# phase 23: how far the backend's state may move when matching and BA run on
+# the card (compute_device "default") in place of the CPU ("auto"): f32
+# arithmetic in another order, the same LM path
+SLAM_BA_POSE_TOL = 1e-4  # rotation entries and metres
+SLAM_POINT_TOL = 1e-3  # metres
+# phase 24: the drift orbit, `bench.py:919-1045` unchanged
+DRIFT_FRAMES = 256
+# phase 25: the KITTI loop, `bench.py:1165-1300` unchanged
+LOOP_FRAMES = 256
+LOOP_SCALE = 5.0
+# phase 26: the pose graph above pose_graph._DENSE_MAX_NODES
+GRAPH_NODES = 900
+GRAPH_MAX_CG = 4096  # the gated f64 PCG: CG's cap per LM step
+GRAPH_F32_CAPS = (512, 256)  # the JAX test's cap and solver "auto"'s default
+# the JAX package's accuracy records (BENCH_r05.json), quoted beside the port's
+JAX_SLAM_ATE_M = 0.0011
+JAX_DRIFT_ATES_M = (0.014, 0.0035, 0.014)  # odometry, anchored, online
+JAX_LOOP_ATES_M = (0.0308, 0.0162, 0.0222)
+
+
+@contextlib.contextmanager
+def _mapping_warnings(label):
+    """Fail the phase if the mapping backend logs a warning inside the
+    block: its graceful degradation must hide nothing on the card."""
+    import logging
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record)
+
+    logger = logging.getLogger("vslam_tpu_torch.mapping")
+    handler = Keep(logging.WARNING)
+    logger.addHandler(handler)
+    try:
+        yield
+    finally:
+        logger.removeHandler(handler)
+    if records:
+        raise AssertionError(f"{label}: the mapping backend warned: {[r.getMessage() for r in records[:5]]}")
+
+
+class _WorkerOps:
+    """Counts, by thread, the ATen ops of a backend's process_chunk calls
+    that touch a CUDA tensor and are not views (a view launches nothing),
+    through a dispatch mode entered on the calling thread."""
+
+    def __init__(self, backend):
+        import collections
+        import threading
+
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        self.by_thread = collections.Counter()
+        counter = self.by_thread
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if not func.is_view and any(torch.is_tensor(t) and t.is_cuda
+                                            for t in tree_leaves((args, kwargs, out))):
+                    counter[threading.current_thread().name.split("_")[0]] += 1
+                return out
+
+        fn = backend.process_chunk
+
+        def counted(*a, **kw):
+            with Mode():
+                return fn(*a, **kw)
+
+        backend.process_chunk = counted
+
+
+def _worker_ops(ops, label, log):
+    """Log the CUDA ops that a `_WorkerOps` counted by thread and return the
+    backend worker's (0 is expected under compute_device "auto": its loop
+    closure and the retire-time stereo detection included)."""
+    worker = ops.by_thread["mapping-backend"]
+    log(f"{label}: CUDA ops (not views) of the backend calls by thread {dict(ops.by_thread)}; the worker's "
+        f"{worker} (expected 0 under compute_device auto)")
+    return worker
+
+
+def _record_ba(backend):
+    """Wrap the backend's BA to keep each solve's (poses, points) in a list,
+    which it returns."""
+    solves = []
+    fn = backend._ba.optimize
+
+    def optimize(slam_map):
+        out = fn(slam_map)
+        solves.append(out[:2])
+        return out
+
+    backend._ba.optimize = optimize
+    return solves
+
+
+def _backend_state_gaps(a, solves_a, b, solves_b):
+    """How far two backends' states lie apart after the same chunks: the
+    largest difference of their BA solves' keyframe poses (rotation entries
+    and translations) and points, and of their landmark positions. Frame
+    and landmark ids come from process-wide counters, so entries pair by
+    order. Raises where the two differ in count."""
+    if len(solves_a) != len(solves_b):
+        raise AssertionError(f"{len(solves_a)} BA solves against {len(solves_b)}")
+
+    def stacked(d):
+        return np.stack([d[k] for k in sorted(d)]) if d else np.zeros((0, 3))
+
+    pose_gap = point_gap = 0.0
+    for (poses_a, points_a), (poses_b, points_b) in zip(solves_a, solves_b):
+        for da, db in ((poses_a, poses_b), (points_a, points_b)):
+            if len(da) != len(db):
+                raise AssertionError(f"a BA solve over {len(da)} entries against {len(db)}")
+        pose_gap = max(pose_gap, float(np.abs(stacked(poses_a)[:, :3] - stacked(poses_b)[:, :3]).max()))
+        if points_a:
+            point_gap = max(point_gap, float(np.abs(stacked(points_a) - stacked(points_b)).max()))
+    pos_a = np.stack([p.position for p in a.map.points()])
+    pos_b = np.stack([p.position for p in b.map.points()])
+    if pos_a.shape != pos_b.shape:
+        raise AssertionError(f"{len(pos_a)} landmarks against {len(pos_b)}")
+    return pose_gap, point_gap, float(np.abs(pos_a - pos_b).max())
+
+
+def _timed_backend(backend):
+    """Wrap the backend's process_chunk to add its wall seconds into
+    ``backend.busy_s`` (its thread's time, beside the scan)."""
+    backend.busy_s = 0.0
+    fn = backend.process_chunk
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            backend.busy_s += time.perf_counter() - t0
+
+    backend.process_chunk = timed
+    return backend
+
+
+def _capture_levels(sink_by_width):
+    """A `_tap` sink keeping the last solve inputs of each level width."""
+    return lambda args, _: sink_by_width.__setitem__(args[2].shape[-1], args)
+
+
+def _levels_vs_plain(captured, label, card, log):
+    """Kernel 1 / 1b against its plain version at each level's captured
+    inputs, bit for bit; returns the largest difference."""
+    from vslam_tpu_torch.alignment import fused_solve
+
+    max_err = 0.0
+    for width, args in sorted(captured.items(), reverse=True):
+        out_k = fused_solve.solve_level_fused(*args)
+        err = _solve_result_diff(out_k, fused_solve.solve_level_fused_plain(*args))
+        max_err = max(max_err, err)
+        ms_k, seen = _kernel_device_ms(lambda: fused_solve.solve_level_fused(*args), 20, "solve_level_kernel")
+        log(f"{label} kernel at the {args[2].shape[-2]}x{width} level's last inputs (F={args[0].templ.shape[1]}, "
+            f"P={args[0].templ.shape[-1]}, {args[4].loss.function}, iterations {out_k[1].iterations.tolist()}): "
+            f"max abs difference from the plain version {err:.3e}; {ms_k:.4f} ms on the device (profiler, "
+            f"{seen} of 20 recorded) {card}")
+    if max_err != 0.0:
+        raise AssertionError(f"{label}: the kernel and its plain version differ by {max_err}")
+    return max_err
+
+
+def _backend_split(backend, wall, n_chunks, label, card, log):
+    """The backend's host ms per chunk by stage (timer scopes) and its share
+    of the wall time."""
+    from vslam_tpu_torch.utils import timer
+
+    parts = []
+    for name in ("map.detect_batch", "map.track", "map.ba", "map.graph"):
+        s = timer.stats(name)
+        if s:
+            parts.append(f"{name} {s['total_s'] * 1e3 / n_chunks:.2f} ms")
+    log(f"{label} backend per chunk ({n_chunks} chunks, host clock of its thread): {', '.join(parts)}; "
+        f"process_chunk busy {backend.busy_s:.3f} s of the {wall:.3f} s wall ({backend.busy_s / wall:.3f}) {card}")
+
+
+def _detect_profile(backend, kf_js, images, camera, cfg, label, card, log):
+    """One batched detection (`dispatch_detect`, its host copies included):
+    device ms and launch calls (torch.profiler), peak memory above its
+    inputs."""
+    import torch
+    from torch.autograd import DeviceType
+
+    call = lambda: backend.dispatch_detect(kf_js, images, camera, cfg)  # noqa: E731
+    ms, _ = _calls_device_ms(call, 3)
+    calls = sum(1 for e in _profiled_events(call) if e.device_type == DeviceType.CPU
+                and e.name.startswith(("cudaLaunch", "cuLaunch")))
+    _sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    _sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"{label}: {ms:.3f} ms on the device (profiler, all its kernels, mean of 3 calls), {calls} launch calls, "
+        f"peak memory above its inputs {peak / 2**20:.1f} MiB {card}")
+
+
+def _slam_stream():
+    """`bench.py:787-832`: 64 noisy 480x640 frames of `smooth_trajectory(64,
+    0.10, 0.04)` re-based on frame 0: depth noise 0.0012 + 0.0019 (z -
+    0.4)^2 m, shot noise 1.5 gray levels, default_rng(7)."""
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.io import synthetic
+
+    K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    poses = synthetic.smooth_trajectory(SLAM_FRAMES, trans_amp=0.10, rot_amp=0.04)
+    p0i = lie_np.inv(poses[0])
+    poses = [p @ p0i for p in poses]
+    clean = _render_all([lambda p=p: synthetic.render(K, p, (H, W)) for p in poses])
+    rng = np.random.default_rng(7)
+    stream = []
+    for i, (inten, depth) in enumerate(clean):
+        z = np.maximum(depth, 0.0)
+        depth_n = z + rng.normal(0.0, 1.0, z.shape) * (0.0012 + 0.0019 * (z - 0.4) ** 2)
+        inten_n = inten + rng.normal(0.0, 1.5, inten.shape)
+        stream.append((i * DT_NS, np.clip(np.round(inten_n), 0, 255).astype(np.uint8),
+                       np.clip(np.round(depth_n * 5000.0), 0, 65535).astype(np.uint16)))
+    return poses, stream
+
+
+def _slam(poses, stream, card, log):
+    """Phase 23: `SequentialOdometry` with `ChunkMappingBackend(enable_ba=
+    True)` over the noisy stream (the bench's slam gate): a mapping-off run,
+    a warm-up whose worker's CUDA ops are counted (0 under "auto"), a
+    streamed run, the best of 2 `run_staged`, each gated at ATE < 0.01 m;
+    the staged replay again with compute_device "default"; kernel 1 against
+    its plain version at each level's inputs. Returns (launches, kernel 1's
+    largest difference)."""
+    import dataclasses
+
+    import torch
+
+    from vslam_tpu_torch.alignment import fused_solve
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry, stage_stream
+    from vslam_tpu_torch.odometry.sequential_mapping import ChunkMappingBackend
+    from vslam_tpu_torch.utils import timer
+
+    cfg = SequentialConfig(alignment=dataclasses.replace(_production_cfg(), interpolation="bilinear"),
+                           depth_scale=1.0 / 5000.0, n_levels=N_LEVELS, kf_period=5)
+    camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    n = len(stream)
+    n_chunks = -(-(n - 1) // SLAM_CHUNK)
+    backend = lambda **kw: _timed_backend(ChunkMappingBackend(enable_ba=True, **kw))  # noqa: E731
+
+    def run(mapping, staged=None):
+        run.odo = SequentialOdometry(camera, cfg, chunk=SLAM_CHUNK, mapping=mapping)
+        t0 = time.perf_counter()
+        res = run.odo.run(iter(stream)) if staged is None else run.odo.run_staged(*staged)
+        _sync()
+        return res, time.perf_counter() - t0
+
+    with _mapping_warnings("phase 23"):
+        res_off, wall_off = run(None)
+        ate_off = _ate(poses, res_off)
+        warm = backend()
+        ops = _WorkerOps(warm)
+        run(warm)
+        flags = run.odo.is_kf[1:]
+        kf_chunks = sum(any(flags[s:s + SLAM_CHUNK]) for s in range(0, len(flags), SLAM_CHUNK))
+        worker_ops = ops.by_thread["mapping-backend"]
+        log(f"phase 23 slam warm-up: CUDA ops (not views) of the backend calls by thread {dict(ops.by_thread)}; "
+            f"the worker's {worker_ops} (expected 0 under compute_device auto); batched detection "
+            f"{warm.batched_detect_chunks} and matching {warm.batched_track_chunks} of the {kf_chunks} chunks "
+            f"with keyframes")
+        if worker_ops != 0 or not warm.batched_detect_chunks == warm.batched_track_chunks == kf_chunks:
+            raise AssertionError(f"phase 23: worker CUDA ops {worker_ops} or an unbatched chunk")
+
+        streamed = backend()
+        _reset_launches()
+        res_stream, wall_stream = run(streamed)
+        launches = _launches()
+        ate_stream = _ate(poses, res_stream)
+        first, chunks = stage_stream(iter(stream), SLAM_CHUNK)
+        run(None, (first, chunks))
+        walls_off = [run(None, (first, chunks))[1] for _ in range(2)]
+        best, walls = None, []
+        captured = {}
+        for rep in range(2):
+            b = backend()
+            timer.reset()
+            with _tap(fused_solve, "solve_level_fused", _capture_levels(captured)):
+                res, wall = run(b, (first, chunks))
+            walls.append(wall)
+            if best is None or wall < best[2]:
+                best = (b, res, wall, {k: timer.stats(k) for k in ("map.detect_batch", "map.track", "map.ba")})
+        b_best, res_staged, wall_staged, _ = best
+        ate_staged = _ate(poses, res_staged)
+        log(f"phase 23 slam ({n} noisy frames at {H}x{W}, fused_gn bf16 bilinear 2048 points, kf_period 5, chunk "
+            f"{SLAM_CHUNK}, ChunkMappingBackend(enable_ba=True)): ATE staged {ate_staged:.5f} m, streamed "
+            f"{ate_stream:.5f} m (gate 0.01 each), mapping-off {ate_off:.5f} m (the JAX package's accuracy record "
+            f"{JAX_SLAM_ATE_M} m); whole-level launches of the streamed run {launches} (expected "
+            f"({N_LEVELS * (n - 1)}, 0)); landmarks {b_best.n_landmarks}, keyframes {sum(flags) + 1} (the "
+            f"window holds {len(b_best.map.keyframes())}), {len(res_staged)} poses")
+        log(f"phase 23 slam frames/s: staged {n / wall_staged:.2f} (best of {', '.join(f'{w:.3f}' for w in walls)} "
+            f"s), streamed {n / wall_stream:.2f} ({wall_stream:.3f} s); mapping off: staged "
+            f"{n / min(walls_off):.2f} (best of {', '.join(f'{w:.3f}' for w in walls_off)} s), streamed "
+            f"{n / wall_off:.2f} ({wall_off:.3f} s) {card}")
+        if not (ate_staged < 0.01 and ate_stream < 0.01) or launches != (N_LEVELS * (n - 1), 0):
+            raise AssertionError(f"phase 23: ATE {ate_staged} / {ate_stream} or launches {launches} off")
+        timer.reset()
+        b = backend()
+        solves = _record_ba(b)
+        _, wall = run(b, (first, chunks))
+        _backend_split(b, wall, n_chunks, "phase 23 slam staged", card, log)
+
+        default = backend(compute_device="default")
+        solves_default = _record_ba(default)
+        res_default, wall_default = run(default, (first, chunks))
+        gap = max(np.linalg.norm(lie_np.log(lie_np.relative(a[1], c[1]))) for a, c in zip(res_staged, res_default))
+        ate_default = _ate(poses, res_default)
+        state_gaps = _backend_state_gaps(b, solves, default, solves_default)
+        log(f"phase 23 slam staged with compute_device default (matching, BA on the card): "
+            f"{n / wall_default:.2f} frames/s against {n / wall_staged:.2f} with auto; ATE {ate_default:.5f} m; "
+            f"largest per-frame pose difference from the auto run {gap:.3e}; against the auto run's backend "
+            f"({len(solves)} BA solves, {b.n_landmarks} landmarks): BA keyframe poses {state_gaps[0]:.3e} (rotation "
+            f"entries and m; gate {SLAM_BA_POSE_TOL}), BA points {state_gaps[1]:.3e} m, landmark positions "
+            f"{state_gaps[2]:.3e} m (gate {SLAM_POINT_TOL} m each) {card}")
+        if not ate_default < 0.01:
+            raise AssertionError(f"phase 23: ATE {ate_default} with compute_device default")
+        if not (solves and state_gaps[0] <= SLAM_BA_POSE_TOL and max(state_gaps[1:]) <= SLAM_POINT_TOL):
+            raise AssertionError(f"phase 23: the backend's state with compute_device default parts from auto's: "
+                                 f"{len(solves)} BA solves, gaps {state_gaps}")
+
+    _detect_profile(b_best, None, (chunks[0].intensity, chunks[0].depth), camera, cfg,
+                    f"phase 23 detection of a {len(chunks[0].stamps)}-frame chunk at {H}x{W}", card, log)
+    err = _levels_vs_plain(captured, "phase 23 slam", card, log)
+    return launches[0], err
+
+
+def _drift_stream(device):
+    """`bench.py:965-986`: 256 frames of BoxScene(seed=4) along
+    `orbit_trajectory(256, 0.4, 0.05, 0.12)`, rendered on the card."""
+    from vslam_tpu_torch.io import synthetic
+
+    K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    poses = synthetic.orbit_trajectory(DRIFT_FRAMES, radius=0.4, height=0.05, yaw=0.12)
+    inten, depth = synthetic.render_boxes_batch(K, poses, (H, W), synthetic.BoxScene(seed=4), batch=16,
+                                                device=device)
+    stream = [(i * DT_NS, np.clip(np.round(inten[i]), 0, 255).astype(np.uint8),
+               np.clip(np.round(depth[i] * 5000.0), 0, 65535).astype(np.uint16)) for i in range(len(poses))]
+    return poses, stream
+
+
+def _slam_drift(poses, stream, card, log):
+    """Phase 24: the drift orbit (the bench's slam_drift gate): Huber,
+    nearest, `fused_gn` (kernel 1b on the main path), mapping off, then BA +
+    loop closure with pose_write_back "off", fold_min_span_frac 2.0 and
+    LoopClosureConfig(4, 10, 8). Gate: closures >= 1, mapping-off ATE >
+    0.01 m, corrected < 0.6 x mapping-off, online <= 1.02 x mapping-off;
+    kernel 1b against its plain version at each level's inputs. Returns
+    (robust launches, kernel 1b's largest difference)."""
+    from vslam_tpu_torch.alignment import fused_solve
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.features.loop_closure import LoopClosureConfig
+    from vslam_tpu_torch.odometry.sequential import SequentialOdometry
+    from vslam_tpu_torch.odometry.sequential_mapping import ChunkMappingBackend
+
+    cfg = _odometry_cfg("robust")  # Huber, nearest, fused_gn bf16 2048 points, kf_period 5
+    camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    n = len(stream)
+    with _mapping_warnings("phase 24"):
+        t0 = time.perf_counter()
+        res_off = SequentialOdometry(camera, cfg, chunk=SLAM_CHUNK).run(iter(stream))
+        _sync()
+        wall_off = time.perf_counter() - t0
+        ate_off = _ate(poses, res_off)
+        backend = _timed_backend(ChunkMappingBackend(enable_ba=True, enable_loop_closure=True,
+                                                     pose_write_back="off", fold_min_span_frac=2.0,
+                                                     loop_closure_cfg=LoopClosureConfig(min_gap=4, min_matches=10,
+                                                                                        min_inliers=8)))
+        ops = _WorkerOps(backend)
+        captured = {}
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _tap(fused_solve, "solve_level_fused", _capture_levels(captured)):
+            res = SequentialOdometry(camera, cfg, chunk=SLAM_CHUNK, mapping=backend).run(iter(stream))
+        _sync()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    ate_online = _ate(poses, res)
+    ate_corr = _ate(poses, backend.corrected_trajectory(res))
+    worker_ops = _worker_ops(ops, "phase 24 slam_drift", log)
+    win = (backend.n_closures >= 1 and ate_off > 0.01 and ate_corr < 0.6 * ate_off
+           and ate_online <= 1.02 * ate_off)
+    log(f"phase 24 slam_drift ({n} frames of the box orbit at {H}x{W}, Huber nearest fused_gn): mapping-off ATE "
+        f"{ate_off:.5f} m, corrected {ate_corr:.5f} m (gate < 0.6 x off = {0.6 * ate_off:.5f}), online "
+        f"{ate_online:.5f} m (gate <= 1.02 x off); {backend.n_closures} closures, {backend.n_landmarks} landmarks; "
+        f"the JAX package's accuracy records (odometry, anchored, online) {JAX_DRIFT_ATES_M} m; robust launches "
+        f"{launches[1]} (expected {N_LEVELS * (n - 1)}); {'WIN' if win else 'FAILED'}")
+    log(f"phase 24 slam_drift frames/s: {n / wall:.2f} with the backend ({wall:.3f} s, process_chunk busy "
+        f"{backend.busy_s:.3f} s, its CUDA ops counted), {n / wall_off:.2f} mapping off ({wall_off:.3f} s), "
+        f"streamed {card}")
+    if not win or launches != (0, N_LEVELS * (n - 1)) or worker_ops != 0:
+        raise AssertionError(f"phase 24: the slam_drift gate failed, launches {launches} off or the worker's CUDA "
+                             f"ops {worker_ops}")
+    err = _levels_vs_plain(captured, "phase 24 slam_drift", card, log)
+    return launches[1], err
+
+
+def _loop_stream(device):
+    """`bench.py:1214-1233`: 256 stereo pairs at 1241x376 along
+    `loop_trajectory(256, 3.0, 0.3, 0.25)` in the street-scale BoxScene,
+    rendered on the card without depth; the right camera 0.5372 m along +x."""
+    from vslam_tpu_torch.io import synthetic
+
+    K = synthetic.camera_matrix(*KITTI_CAM)
+    scene = synthetic.BoxScene(seed=4, scale=LOOP_SCALE, background=synthetic.PlaneScene(
+        normal=(0.0, -0.25, 1.0), d=2.5 * LOOP_SCALE, origin=(0.0, 0.0, 2.5 * LOOP_SCALE), n_waves=12))
+    poses = synthetic.loop_trajectory(LOOP_FRAMES, extent=3.0, height=0.3, yaw=0.25)
+    right = np.eye(4)
+    right[:3, 3] = [-KITTI_BASELINE, 0.0, 0.0]
+    inten, _ = synthetic.render_boxes_batch(K, list(poses) + [right @ p for p in poses], (KITTI_H, KITTI_W), scene,
+                                            batch=8, with_depth=False, device=device)
+    inten = _u8(inten)
+    return poses, [(i * KITTI_DT_NS, inten[i], inten[LOOP_FRAMES + i]) for i in range(LOOP_FRAMES)]
+
+
+def _kitti_loop(poses, stream, card, log):
+    """Phase 25: the KITTI loop (the bench's kitti_loop gate): the KITTI
+    profile of phase 20, mapping off, then BA + loop closure with
+    LoopClosureConfig(max(6, N // 40), 10, 8). Gate: closures >= 1,
+    mapping-off ATE > 0.02 m, corrected < 0.6 x mapping-off. Also the graph
+    solve's telemetry and the stereo detection batch's peak memory. Returns
+    (launches, kernel 1's largest difference)."""
+    import torch
+
+    from vslam_tpu_torch.alignment import fused_solve
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.features.loop_closure import LoopClosureConfig
+    from vslam_tpu_torch.odometry.sequential import SequentialOdometry, stage_stream
+    from vslam_tpu_torch.odometry.sequential_mapping import ChunkMappingBackend
+    from vslam_tpu_torch.utils import timer
+
+    cfg = _kitti_cfg()
+    camera = Camera.create(*KITTI_CAM)
+    n = len(stream)
+    with _mapping_warnings("phase 25"):
+        t0 = time.perf_counter()
+        res_off = SequentialOdometry(camera, cfg, chunk=KITTI_CHUNK).run(iter(stream))
+        _sync()
+        wall_off = time.perf_counter() - t0
+        ate_off = _kitti_ate(poses, res_off)
+        backend = _timed_backend(ChunkMappingBackend(enable_ba=True, enable_loop_closure=True,
+                                                     loop_closure_cfg=LoopClosureConfig(
+                                                         min_gap=max(6, n // 40), min_matches=10, min_inliers=8)))
+        ops = _WorkerOps(backend)
+        captured = {}
+        timer.reset()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _tap(fused_solve, "solve_level_fused", _capture_levels(captured)):
+            res = SequentialOdometry(camera, cfg, chunk=KITTI_CHUNK, mapping=backend).run(iter(stream))
+        _sync()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    ate_online = _kitti_ate(poses, res)
+    ate_corr = _kitti_ate(poses, backend.corrected_trajectory(res))
+    worker_ops = _worker_ops(ops, "phase 25 kitti_loop", log)
+    g = backend._graph
+    win = backend.n_closures >= 1 and ate_off > 0.02 and ate_corr < 0.6 * ate_off
+    log(f"phase 25 kitti_loop ({n} stereo pairs at {KITTI_W}x{KITTI_H}, the KITTI profile): mapping-off ATE "
+        f"{ate_off:.5f} m, corrected {ate_corr:.5f} m (gate < 0.6 x off = {0.6 * ate_off:.5f}), online "
+        f"{ate_online:.5f} m; {backend.n_closures} closures, {backend.n_landmarks} landmarks; the JAX package's "
+        f"accuracy records (odometry, anchored, online) {JAX_LOOP_ATES_M} m; graph: {g.last_solve_nodes} nodes, "
+        f"last solve {g.last_solve_s:.3f} s, slowest {g.max_solve_s:.3f} s; launches {launches} (expected "
+        f"({KITTI_LEVELS * (n - 1)}, 0)); {'WIN' if win else 'FAILED'}")
+    log(f"phase 25 kitti_loop frames/s: {n / wall:.2f} with the backend ({wall:.3f} s, its CUDA ops counted), "
+        f"{n / wall_off:.2f} mapping off ({wall_off:.3f} s), streamed {card}")
+    _backend_split(backend, wall, -(-(n - 1) // KITTI_CHUNK), "phase 25 kitti_loop streamed", card, log)
+    if not win or launches != (KITTI_LEVELS * (n - 1), 0) or worker_ops != 0:
+        raise AssertionError(f"phase 25: the kitti_loop gate failed, launches {launches} off or the worker's CUDA "
+                             f"ops {worker_ops}")
+    # the stereo detection batch: a chunk's keyframes, block matching included
+    first, chunks = stage_stream(iter(stream[:KITTI_CHUNK + 1]), KITTI_CHUNK)
+    kf_js = list(range(4, KITTI_CHUNK, 5))
+    _detect_profile(backend, kf_js, (chunks[0].intensity, chunks[0].depth), camera, cfg,
+                    f"phase 25 stereo detection of {len(kf_js)} keyframes at {KITTI_W}x{KITTI_H} (block matching "
+                    f"included)", card, log)
+    err = _levels_vs_plain(captured, "phase 25 kitti_loop", card, log)
+    return launches[0], err
+
+
+def _big_graph(device):
+    """A chain of GRAPH_NODES noisy odometry edges (information 1) with five
+    exact long-range loop edges (information 100), initialized by
+    integrating the noisy odometry: `tests/test_pose_graph.py::
+    test_pcg_large_chain_with_loops` at 900 nodes."""
+    import torch
+
+    from vslam_tpu_torch.ba.pose_graph import PoseGraph
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.core.se3 import SE3
+
+    K = GRAPH_NODES
+    rng = np.random.default_rng(7)
+    gt = [np.eye(4)]
+    step = np.array([0.4, 0.0, 0.05, 0.0, 2 * np.pi / K, 0.0])
+    for _ in range(1, K):
+        gt.append(lie_np.exp(step) @ gt[-1])
+    edges = [(k, k + 1, lie_np.exp(rng.normal(0, 0.01, 6)) @ lie_np.relative(gt[k], gt[k + 1]), 1.0)
+             for k in range(K - 1)]
+    loops = [(K - 1, 0), (K // 2, 0), (3 * K // 4, K // 4), (K - 1, K // 2), (K // 3, 0)]
+    edges += [(a, b, lie_np.relative(gt[a], gt[b]), 100.0) for a, b in loops]
+    init = [np.eye(4)]
+    for k in range(K - 1):
+        init.append(edges[k][2] @ init[-1])
+    f64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64, device=device)  # noqa: E731
+    i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)  # noqa: E731
+    return PoseGraph(SE3(f64([T[:3, :3] for T in init]), f64([T[:3, 3] for T in init])),
+                     i64([e[0] for e in edges]), i64([e[1] for e in edges]),
+                     SE3(f64([e[2][:3, :3] for e in edges]), f64([e[2][:3, 3] for e in edges])),
+                     f64([np.eye(6) * e[3] for e in edges]), torch.ones(len(edges), dtype=torch.bool, device=device))
+
+
+def _graph_at_scale(device, card, log):
+    """Phase 26: the 900-node five-loop chain on the card, by PCG (the path
+    solver "auto" takes above 768 nodes) and by the dense solve (a 5400 x
+    5400 Hessian). Gated in f64, as `test_pcg_matches_dense`: initial chi2
+    within rtol 1e-5, PCG's final chi2 < 0.1 x its initial, translations
+    within 5e-3, with CG capped at GRAPH_MAX_CG iterations a step (rtol
+    1e-8). In f32 the optimum is not determined to 5e-3 (the f32 dense
+    solve lands ~0.2 m from the f64 one), and PCG at the caps
+    GRAPH_F32_CAPS stalls far above it, as the JAX function does on the
+    same graph (`tests/test_torch_pose_graph.py`): those runs are reported
+    beside the f64 ones, an open fault (ROADMAP Queue 3), not gated."""
+    import torch
+
+    from vslam_tpu_torch.ba import pose_graph
+    from vslam_tpu_torch.core.se3 import SE3
+
+    g = _big_graph(device)
+
+    def solve(graph, solver, max_cg=0):
+        kw = {"max_cg": max_cg, "cg_rtol": 1e-8} if solver == "pcg" else {}
+        t0 = time.perf_counter()
+        opt, c0, c1 = pose_graph.optimize_pose_graph(graph, solver=solver, **kw)
+        _sync()
+        return opt, float(c0), float(c1), time.perf_counter() - t0, pose_graph.optimize_pose_graph.cg_iterations
+
+    (od, d0, d1, td, _), (op, p0, p1, tp, cg) = solve(g, "dense"), solve(g, "pcg", GRAPH_MAX_CG)
+    gap = float((op.t - od.t).abs().max())
+    log(f"phase 26 pose graph, the five-loop chain: {GRAPH_NODES} nodes, {g.edge_i.shape[0]} edges on the card, "
+        f"f64: PCG (cap {GRAPH_MAX_CG}) chi2 {p0:.6g} -> {p1:.6g} in {tp:.3f} s, {cg} CG iterations; dense "
+        f"({6 * GRAPH_NODES} x {6 * GRAPH_NODES}) chi2 {d0:.6g} -> {d1:.6g} in {td:.3f} s; translations PCG against "
+        f"dense {gap:.3e} m (gate 5e-3) {card}")
+    if not (abs(p0 - d0) <= 1e-5 * abs(d0) and p1 < 0.1 * p0 and gap < 5e-3):
+        raise AssertionError(f"phase 26: PCG and the dense solve disagree: chi2 {p0} -> {p1} against {d0} -> {d1}, "
+                             f"translations {gap} m apart")
+    g32 = g._replace(poses=SE3(g.poses.R.float(), g.poses.t.float()),
+                     edge_rel=SE3(g.edge_rel.R.float(), g.edge_rel.t.float()), edge_info=g.edge_info.float())
+    runs = [("dense", solve(g32, "dense"))] + [(f"PCG cap {c}", solve(g32, "pcg", c)) for c in GRAPH_F32_CAPS]
+    log("phase 26 pose graph, the five-loop chain in f32 (open fault, not gated): " + "; ".join(
+        f"{name} chi2 {c1:.6g} in {t:.3f} s ({it} CG iterations), translations {float((o.t.double() - od.t).abs().max()):.3e} "
+        f"m from the f64 dense solve" for name, (o, _, c1, t, it) in runs) + f" {card}")
 
 
 def result_line(kind: str) -> dict:
@@ -2669,7 +3322,40 @@ def main() -> int:
     _secondary_aligners(*streams["odometry"], card, log)
     _sync()
     log(f"phase 22 took {time.perf_counter() - t0:.1f} s")
-    max_abs = max(max_abs, err_kitti, err_suite)
+
+    # 23. full SLAM on the noisy stream
+    t0 = time.perf_counter()
+    slam_poses, slam_stream = _slam_stream()
+    log(f"phase 23: rendered {len(slam_stream)} noisy frames at {H}x{W} in {time.perf_counter() - t0:.1f} s")
+    launches_slam, err_slam = _slam(slam_poses, slam_stream, card, log)
+    _sync()
+    log(f"phase 23 took {time.perf_counter() - t0:.1f} s")
+
+    # 24. the drift orbit: kernel 1b on the main path
+    t0 = time.perf_counter()
+    drift_poses, drift_stream = _drift_stream(device)
+    log(f"phase 24: rendered {len(drift_stream)} frames at {H}x{W} on the card in {time.perf_counter() - t0:.1f} s")
+    launches_drift, err_drift = _slam_drift(drift_poses, drift_stream, card, log)
+    del drift_stream
+    _sync()
+    log(f"phase 24 took {time.perf_counter() - t0:.1f} s")
+
+    # 25. the KITTI loop
+    t0 = time.perf_counter()
+    loop_poses, loop_stream = _loop_stream(device)
+    log(f"phase 25: rendered {len(loop_stream)} stereo pairs at {KITTI_W}x{KITTI_H} on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches_loop, err_loop = _kitti_loop(loop_poses, loop_stream, card, log)
+    del loop_stream
+    _sync()
+    log(f"phase 25 took {time.perf_counter() - t0:.1f} s")
+
+    # 26. the pose graph above the dense solve's node count
+    t0 = time.perf_counter()
+    _graph_at_scale(device, card, log)
+    log(f"phase 26 took {time.perf_counter() - t0:.1f} s")
+    max_abs = max(max_abs, err_kitti, err_suite, err_slam, err_loop)
+    max_abs_robust = max(max_abs_robust, err_drift)
     max_abs_robust = max(max_abs_robust, err_sizes["solve_level_fused_robust"])
     err_new["fused_level_sample"] = max(err_new["fused_level_sample"], err_sizes["fused_level_sample"])
     for name, n in launches_pipe.items():
@@ -2684,7 +3370,7 @@ def main() -> int:
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:533",
         "launches": launches_pairs[0] + launches_odo["odometry"] + launches_pipe["solve_level_fused"]
-        + launches_kitti + launches_suite,
+        + launches_kitti + launches_suite + launches_slam + launches_loop,
         "max_abs_err": max_abs,
         "ms": sum(ms_k.values()),
         "plain_ms": sum(ms_p.values()),
@@ -2697,7 +3383,7 @@ def main() -> int:
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:520",
         "launches": launches_track[1] + launches_odo["robust"] + robust_vlog
-        + launches_pipe["solve_level_fused_robust"],
+        + launches_pipe["solve_level_fused_robust"] + launches_drift,
         "max_abs_err": max_abs_robust,
         "ms": sum(ms_k_robust.values()),
         "plain_ms": sum(ms_p_robust.values()),

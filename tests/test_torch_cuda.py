@@ -743,3 +743,203 @@ def test_block_matcher_on_the_card_equals_the_cpu(device, kitti_frames):
     assert (want > 0).float().mean() > 0.3
     torch.testing.assert_close(got > 0, want > 0, rtol=0, atol=0)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the mapping backend: features, BA, the pose graph and the chunk backend on
+# the card against the same calls on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _blob_images(n=3, h=120, w=160, seed=42):
+    """Integer-valued images with bright square blobs (FAST corners)."""
+    rng = np.random.default_rng(seed)
+    imgs = np.full((n, h, w), 50.0, np.float32)
+    for img in imgs:
+        for _ in range(25):
+            y, x = rng.integers(20, h - 20), rng.integers(20, w - 20)
+            img[y - 3 : y + 4, x - 3 : x + 4] = 220.0
+    return imgs
+
+
+def test_features_on_the_card_equal_the_cpu(device):
+    """Detection (integer images: exact), orientations within 1e-5 rad,
+    steered descriptors >= 99 % equal bits (cos / sin may differ in the last
+    bit and move a rounded offset), packing, the L1 matrix and `ratio_match`
+    with `unique` exact."""
+    from vslam_tpu_torch.features import descriptor, detector, matcher, tracking
+
+    imgs = torch.as_tensor(_blob_images())
+    depth = torch.full_like(imgs, 2.0)
+    want = tracking._detect_describe(imgs, depth, cell=16)
+    got = [t.cpu() for t in tracking._detect_describe(imgs.to(device), depth.to(device), cell=16)]
+    for i in (0, 1, 2, 4):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=0)
+    valid = want[2]
+    bits_g = descriptor.unpack_bits(got[3])[valid]
+    bits_w = descriptor.unpack_bits(want[3])[valid]
+    assert valid.sum() >= 20 and (bits_g == bits_w).float().mean() >= 0.99
+    uv = want[0][0][valid[0]]
+    torch.testing.assert_close(descriptor.keypoint_orientations(imgs[0].to(device), uv.to(device)).cpu(),
+                               descriptor.keypoint_orientations(imgs[0], uv), rtol=0, atol=1e-5)
+    det = detector.fast_grid_detect(imgs.to(device), depth.to(device), threshold=20.0)
+    for g, w in zip(det, detector.fast_grid_detect(imgs, depth, threshold=20.0)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    d = bits_w[:40]
+    dm = matcher.descriptor_l1_matrix(d, d.flip(0))
+    torch.testing.assert_close(matcher.descriptor_l1_matrix(d.to(device), d.flip(0).to(device)).cpu(), dm,
+                               rtol=0, atol=0)
+    for g, w in zip(matcher.ratio_match(dm.to(device), max_distance=80.0, unique=True),
+                    matcher.ratio_match(dm, max_distance=80.0, unique=True)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+def _ba_problem(device, seed=42):
+    """A depth-anchored 3-pose, 40-point BA problem with half-pixel noise."""
+    from vslam_tpu_torch.ba.bundle_adjustment import BaProblem
+
+    fx, cx, cy = 200.0, 160.0, 120.0
+    rng = np.random.default_rng(seed)
+    poses_gt = [lie_np.exp(np.array([0.2 * k, 0.05 * k, 0.0, 0.0, 0.1 * k, 0.0])) for k in range(3)]
+    pts = np.stack([rng.uniform(-1.5, 1.5, 40), rng.uniform(-1.0, 1.0, 40), rng.uniform(2.5, 5.0, 40)], 1)
+    obs = []
+    for k, T in enumerate(poses_gt):
+        pc = lie_np.transform(T, pts)
+        for m in range(40):
+            u, v = fx * pc[m, 0] / pc[m, 2] + cx, fx * pc[m, 1] / pc[m, 2] + cy
+            if 0 < u < 2 * cx and 0 < v < 2 * cy:
+                obs.append((k, m, u + rng.normal(0, 0.5), v + rng.normal(0, 0.5), pc[m, 2]))
+    obs = np.asarray(obs)
+    init = [poses_gt[0]] + [lie_np.exp(rng.normal(0, 0.03, 6)) @ T for T in poses_gt[1:]]
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    return BaProblem(poses=SE3(f32([T[:3, :3] for T in init]), f32([T[:3, 3] for T in init])),
+                     pose_mask=torch.ones(3, dtype=torch.bool, device=device),
+                     points=f32(pts + rng.normal(0, 0.05, pts.shape)),
+                     point_mask=torch.ones(40, dtype=torch.bool, device=device),
+                     obs_frame=torch.as_tensor(obs[:, 0].astype(np.int64), device=device),
+                     obs_point=torch.as_tensor(obs[:, 1].astype(np.int64), device=device),
+                     obs_uv=f32(obs[:, 2:4]), obs_mask=torch.ones(len(obs), dtype=torch.bool, device=device),
+                     fx=f32(fx), fy=f32(fx), cx=f32(cx), cy=f32(cy), obs_z=f32(obs[:, 4]))
+
+
+def test_bundle_adjustment_on_the_card_equals_the_cpu(device):
+    """`solve_ba`: poses within 1e-4 (SE(3) log), points within 1e-3 m,
+    chi2 within rtol 1e-4; the newest pose's covariance within rtol 1e-3 of
+    its largest entry (f32 solves, other summation orders)."""
+    from vslam_tpu_torch.ba import bundle_adjustment as ba
+
+    got = ba.solve_ba(_ba_problem(device), max_iterations=40)
+    want = ba.solve_ba(_ba_problem("cpu"), max_iterations=40)
+    for k in range(3):
+        Tg = np.eye(4)
+        Tg[:3, :3], Tg[:3, 3] = got[0].R[k].cpu().numpy(), got[0].t[k].cpu().numpy()
+        Tw = np.eye(4)
+        Tw[:3, :3], Tw[:3, 3] = want[0].R[k].numpy(), want[0].t[k].numpy()
+        assert np.linalg.norm(lie_np.log(lie_np.relative(Tg, Tw))) < 1e-4
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[3].cpu(), want[3], rtol=1e-4, atol=0)
+    cov_g = ba.pose_covariance(_ba_problem(device), got[0], got[1], 2).cpu()
+    cov_w = ba.pose_covariance(_ba_problem("cpu"), want[0], want[1], 2)
+    torch.testing.assert_close(cov_g, cov_w, rtol=0, atol=1e-3 * float(cov_w.abs().max()))
+
+
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_pose_graph_on_the_card_equals_the_cpu(device, solver):
+    """A 48-node chain with five loop edges: chi2 before within rtol 1e-5,
+    after within rtol 1e-2, translations within 1e-4 (dense) / 5e-4 (PCG)."""
+    from vslam_tpu_torch.ba import pose_graph as pg
+
+    rng = np.random.default_rng(7)
+    K = 48
+    gt = [np.eye(4)]
+    for _ in range(1, K):
+        gt.append(lie_np.exp(np.array([0.4, 0.0, 0.05, 0.0, 2 * np.pi / K, 0.0])) @ gt[-1])
+    edges = [(k, k + 1, lie_np.exp(rng.normal(0, 0.01, 6)) @ lie_np.relative(gt[k], gt[k + 1]), 1.0)
+             for k in range(K - 1)]
+    edges += [(a, b, lie_np.relative(gt[a], gt[b]), 100.0) for a, b in [(K - 1, 0), (K // 2, 0), (36, 12)]]
+    init = [np.eye(4)]
+    for k in range(K - 1):
+        init.append(edges[k][2] @ init[-1])
+
+    def graph(dev):
+        f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+        i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)  # noqa: E731
+        return pg.PoseGraph(SE3(f32([T[:3, :3] for T in init]), f32([T[:3, 3] for T in init])),
+                            i64([e[0] for e in edges]), i64([e[1] for e in edges]),
+                            SE3(f32([e[2][:3, :3] for e in edges]), f32([e[2][:3, 3] for e in edges])),
+                            f32([np.eye(6) * e[3] for e in edges]), torch.ones(len(edges), dtype=torch.bool,
+                                                                               device=dev))
+
+    kw = dict(solver=solver, cg_rtol=1e-8)
+    og, c0g, c1g = pg.optimize_pose_graph(graph(device), **kw)
+    ow, c0w, c1w = pg.optimize_pose_graph(graph("cpu"), **kw)
+    torch.testing.assert_close(c0g.cpu(), c0w, rtol=1e-5, atol=0)
+    torch.testing.assert_close(c1g.cpu(), c1w, rtol=1e-2, atol=1e-6)
+    torch.testing.assert_close(og.t.cpu(), ow.t, rtol=0, atol=1e-4 if solver == "dense" else 5e-4)
+
+
+class _CudaOps:
+    """Counts, per thread name, the ATen ops that touch a CUDA tensor and
+    are not views (a view launches nothing), inside `within()`."""
+
+    def __init__(self):
+        import collections
+
+        self.by_thread = collections.Counter()
+
+    def within(self, fn):
+        import threading
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if not func.is_view and any(torch.is_tensor(t) and t.is_cuda
+                                            for t in tree_leaves((args, kwargs, out))):
+                    counter.by_thread[threading.current_thread().name.split("_")[0]] += 1
+                return out
+
+        def wrapped(*a, **kw):
+            with Mode():
+                return fn(*a, **kw)
+
+        return wrapped
+
+
+@pytest.mark.parametrize("compute_device", ["auto", "default"])
+def test_async_worker_launches_nothing_on_the_card_under_auto(device, compute_device):
+    """SequentialOdometry on the card with an async backend: under "auto"
+    the worker thread launches no CUDA op (it waits on the detection's
+    event only), and two runs repeat to 1e-9; under "default" it does
+    launch (the counter sees the card)."""
+    from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry
+    from vslam_tpu_torch.odometry.sequential_mapping import ChunkMappingBackend
+
+    h, w, fx = 96, 128, 110.0
+    K = synthetic.camera_matrix(fx, fx, (w - 1) / 2, (h - 1) / 2)
+    poses = synthetic.smooth_trajectory(13, trans_amp=0.06, rot_amp=0.02)
+    items = []
+    for i, p in enumerate(poses):
+        inten, depth = synthetic.render(K, p @ lie_np.inv(poses[0]), (h, w))
+        items.append((i * 33_333_333, np.round(inten).astype(np.uint8),
+                      np.round(depth * 5000).astype(np.uint16)))
+    cfg = SequentialConfig(alignment=ic.AlignmentConfig(min_gradient=10.0, include_prior=True),
+                           depth_scale=1 / 5000, kf_period=3)
+    cam = Camera.create(fx, fx, (w - 1) / 2, (h - 1) / 2, device=device)
+    runs = []
+    for _ in range(2 if compute_device == "auto" else 1):
+        backend = ChunkMappingBackend(enable_ba=True, compute_device=compute_device, device=device)
+        ops = _CudaOps()
+        backend.process_chunk = ops.within(backend.process_chunk)
+        runs.append(SequentialOdometry(cam, cfg, chunk=4, mapping=backend).run(iter(items)))
+        assert backend.batched_detect_chunks == backend.batched_track_chunks == 3
+        assert backend.n_landmarks > 0
+        worker = ops.by_thread["mapping-backend"]
+        assert (worker == 0) if compute_device == "auto" else (worker > 0), ops.by_thread
+        assert ops.by_thread["MainThread"] > 0  # the first frame's backend call, on the card
+    for (_, Ta, _), (_, Tb, _) in zip(runs[0], runs[-1]):
+        np.testing.assert_allclose(Ta, Tb, atol=1e-9)

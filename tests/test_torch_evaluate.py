@@ -25,7 +25,8 @@ JAX package's on the same files.
   each per-sequence trajectory within 1e-3 of JAX's per pose, and the
   `_suite.meta.json` beside them. KITTI roots with different baselines exit 2.
 * Each option that waits for an unported module raises NotImplementedError
-  naming it, in suite mode too.
+  naming it (--live-viz). `--mapping` is held against the JAX CLI in
+  `tests/test_torch_mapping_entry.py`.
 """
 
 import contextlib
@@ -200,13 +201,10 @@ def test_reproduce_exit_codes(mini_dataset, tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv,module",
     [
-        (["odometry", "--dataset", "d", "--mapping"], "odometry/sequential_mapping.py"),
-        (["odometry", "--dataset", "d", "--dataset", "e", "--mapping"], "odometry/sequential_mapping.py"),
         (["odometry", "--dataset", "d", "--live-viz", "0"], "viz/live.py"),
-        (["synthetic", "--mapping"], "odometry/sequential_mapping.py"),
         (["synthetic", "--live-viz", "0"], "viz/live.py"),
     ],
-    ids=["mapping", "suite-mapping", "live-viz", "synthetic-mapping", "synthetic-live-viz"],
+    ids=["live-viz", "synthetic-live-viz"],
 )
 def test_unported_options_raise_naming_their_module(argv, module):
     with pytest.raises(NotImplementedError, match=re.escape(module)):

@@ -33,7 +33,9 @@ from vslam_tpu_torch.odometry.pipeline import OdometryPipeline
 from vslam_tpu_torch.alignment.fa_se3 import RgbdAlignerFa
 from vslam_tpu_torch.alignment.icp import IcpAligner
 from vslam_tpu_torch.io.kitti import KittiDataset
+from vslam_tpu_torch.io import synthetic
 from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry, stage_stream
+from vslam_tpu_torch.odometry.sequential_mapping import ChunkMappingBackend
 from vslam_tpu_torch.parallel.sequences import MultiSequenceOdometry, sharded_scan_sequences
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
@@ -59,7 +61,8 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 53  # the slices' modules, KITTI's, the suite's and the aligners' among them
+    # the slices' modules, KITTI's, the suite's, the aligners' and the mapping backend's among them
+    assert int(out.stdout.split()[-1]) >= 64
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -175,6 +178,25 @@ def _kitti_depth():
         return torch.zeros(1, device=ds.device)
 
 
+def _render_boxes_batch_device() -> torch.Tensor:
+    """A tensor on the device `render_boxes_batch` renders on when none is
+    named (its images reach the caller as numpy)."""
+    from torch.overrides import TorchFunctionMode
+
+    seen = []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if torch.is_tensor(out) and not seen:
+                seen.append(out.device)
+            return out
+
+    with Record():
+        synthetic.render_boxes_batch(np.eye(3), [np.eye(4)], (2, 3))
+    return torch.zeros(1, device=seen[0])
+
+
 def _cli_device() -> str:
     """The CLI's ``--device`` when none is given, the same on every command
     that tracks."""
@@ -205,11 +227,14 @@ def _cli_device() -> str:
         lambda: MultiSequenceOdometry([Camera(1.0, 1.0, 0.0, 0.0)] * 2).cameras.fx,
         lambda: torch.zeros(1, device=RgbdAlignerFa().device),
         lambda: torch.zeros(1, device=IcpAligner().device),
+        lambda: torch.zeros(1, device=ChunkMappingBackend().device),
+        _render_boxes_batch_device,
     ],
     ids=["Camera.create", "se3.identity", "ekf_se3.init", "stage_stream", "interop.camera_from_numpy",
          "interop.se3_from_numpy", "interop.frame_from_numpy", "interop.level_data_from_numpy",
          "interop.level_data_tuple_from_numpy", "interop.ekf_state_from_numpy", "OdometryPipeline",
-         "evaluate --device", "KittiDataset", "MultiSequenceOdometry", "RgbdAlignerFa", "IcpAligner"],
+         "evaluate --device", "KittiDataset", "MultiSequenceOdometry", "RgbdAlignerFa", "IcpAligner",
+         "ChunkMappingBackend", "render_boxes_batch"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device named, an entry point puts its tensors on CUDA, and
@@ -224,15 +249,14 @@ def test_entry_points_default_to_the_card(make):
 @pytest.mark.parametrize(
     "kwargs,cfg,what",
     [
-        ({"mapping": object()}, SequentialConfig(), "mapping backend"),
-        ({"viz": object()}, SequentialConfig(), "live viewer"),
-        ({"mappings": [object()]}, SequentialConfig(), "odometry/sequential_mapping.py"),
-        ({"mesh": object()}, SequentialConfig(), "torch.distributed"),
+        pytest.param({"viz": object()}, SequentialConfig(), "live viewer", id="kwargs1-cfg1-live viewer"),
+        pytest.param({"mesh": object()}, SequentialConfig(), "torch.distributed",
+                     id="kwargs3-cfg3-torch.distributed"),
     ],
 )
 def test_unported_sequential_options_raise(kwargs, cfg, what):
-    """`SequentialOdometry` (mapping, viz) and `MultiSequenceOdometry`
-    (mappings, mesh) refuse what waits for an unported module, naming it."""
+    """`SequentialOdometry` (viz) and `MultiSequenceOdometry` (mesh) refuse
+    what waits for an unported module, naming it."""
     cam = Camera.create(100.0, 100.0, 31.5, 23.5, device="cpu")
     with pytest.raises(NotImplementedError, match=re.escape(what)):
         if {"mappings", "mesh"} & set(kwargs):
@@ -246,20 +270,46 @@ def test_sharded_scan_sequences_names_torch_distributed():
         sharded_scan_sequences(object(), SequentialConfig())
 
 
-@pytest.mark.parametrize(
-    "cfg,module",
-    [
-        (PipelineConfig(enable_mapping=True), "features/ and ba/"),
-        (PipelineConfig(enable_loop_closure=True), "odometry/graph_backend.py"),
-        (PipelineConfig(live_viz_port=0), "viz/live.py"),
-    ],
-    ids=["enable_mapping", "enable_loop_closure", "live_viz_port"],
-)
+@pytest.mark.parametrize("cfg,module", [(PipelineConfig(live_viz_port=0), "viz/live.py")], ids=["live_viz_port"])
 def test_unported_pipeline_options_raise(cfg, module):
     """The pipeline refuses at construction what waits for an unported
     module, and names that module."""
     with pytest.raises(NotImplementedError, match=module):
         OdometryPipeline(Camera(100.0, 100.0, 31.5, 23.5), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("make", [
+    lambda cam: SequentialOdometry(cam, SequentialConfig(), mapping=ChunkMappingBackend(device="cpu")),
+    lambda cam: SequentialOdometry(cam, SequentialConfig(), mapping=ChunkMappingBackend(device="cpu"),
+                                   async_mapping=False),
+    lambda cam: MultiSequenceOdometry([cam, cam], SequentialConfig(),
+                                      mappings=[ChunkMappingBackend(device="cpu") for _ in range(2)]),
+    lambda cam: OdometryPipeline(cam, PipelineConfig(enable_mapping=True), device="cpu"),
+    lambda cam: OdometryPipeline(cam, PipelineConfig(enable_loop_closure=True), device="cpu"),
+], ids=["SequentialOdometry-mapping", "SequentialOdometry-sync-mapping", "MultiSequenceOdometry-mappings",
+        "OdometryPipeline-enable_mapping", "OdometryPipeline-enable_loop_closure"])
+def test_mapping_options_are_ported(make):
+    """The mapping options no longer raise, and keep the backend they were given."""
+    obj = make(Camera.create(100.0, 100.0, 31.5, 23.5, device="cpu"))
+    if isinstance(obj, SequentialOdometry):
+        assert obj.mapping is not None and obj.async_mapping == (obj._executor is not None)
+    elif isinstance(obj, MultiSequenceOdometry):
+        assert len(obj.mappings) == 2
+    else:
+        assert obj._tracking is not None
+
+
+def test_mapping_options_checked():
+    """Unknown backend options and a backend count that is not one per
+    sequence are refused."""
+    for kw in ({"pose_write_back": "sometimes"}, {"ba_schedule": "x"}, {"track_schedule": "x"},
+               {"compute_device": "tpu"}):
+        with pytest.raises(ValueError):
+            ChunkMappingBackend(device="cpu", **kw)
+    with pytest.raises(ValueError, match="one mapping backend per sequence"):
+        MultiSequenceOdometry([Camera.create(1.0, 1.0, 0.0, 0.0, device="cpu")] * 2,
+                              mappings=[ChunkMappingBackend(device="cpu")])
+    assert ChunkMappingBackend(device="cpu", compute_device="auto").compute_device == torch.device("cpu")
 
 
 def test_chip_smoke_result_line_keeps_the_contract():

@@ -15,7 +15,10 @@ from `io.kitti` when given a baseline), suite mode
 (`parallel.sequences.MultiSequenceOdometry`), the per-frame pipeline
 (`odometry.pipeline.OdometryPipeline`), the KITTI reader
 (`io.kitti.KittiDataset`), the secondary aligners (`alignment.fa_se3.
-RgbdAlignerFa`, `alignment.icp.IcpAligner`) and the evaluation CLI,
+RgbdAlignerFa`, `alignment.icp.IcpAligner`), the mapping backend
+(`odometry.sequential_mapping.ChunkMappingBackend`: features on the card,
+matching, BA and the pose graph on the CPU beside the scan by default),
+`io.synthetic.render_boxes_batch` and the evaluation CLI,
 `python -m vslam_tpu_torch.eval.evaluate` (``--device``).
 """
 

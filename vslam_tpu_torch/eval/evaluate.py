@@ -22,9 +22,10 @@ with the JAX CLI's subcommands, flags, JSON lines and exit codes, plus
   reproduce  replay + the reference protocols, pass/fail against the
              published fr2_desk budgets
 
-The options that need modules not ported yet raise NotImplementedError
-naming them, in suite mode too: --mapping (odometry/sequential_mapping.py)
-and --live-viz (viz/live.py).
+--mapping runs the SLAM backend (features, windowed BA) on the host loop,
+the sequential scan and in suite mode. --live-viz needs a module not ported
+yet and raises NotImplementedError naming it (viz/live.py), in suite mode
+too.
 
 Provenance: like the reference's meta.yaml (script/evaluate.py:51-55), the
 odometry command records config + git sha next to the trajectory.
@@ -47,8 +48,6 @@ def _unported(what: str, module: str):
 
 def _refuse_unported(args) -> None:
     """Raise for the options whose modules the port does not have yet."""
-    if getattr(args, "mapping", False):
-        raise _unported("--mapping (the mapping backend)", "odometry/sequential_mapping.py, features/ and ba/")
     if getattr(args, "live_viz", None) is not None:
         raise _unported("--live-viz (the live viewer)", "viz/live.py")
 
@@ -66,6 +65,8 @@ def _cmd_odometry(args) -> int:
     configure(args.log_level)
     log = get_logger("system")
     cfg = load_yaml_config(args.config) if args.config else PipelineConfig()
+    if args.mapping:
+        cfg = dataclasses.replace(cfg, enable_mapping=True)
     if len(args.dataset) > 1:
         return _cmd_odometry_multi(args, cfg, log)
     args.dataset = args.dataset[0]
@@ -88,8 +89,6 @@ def _cmd_odometry(args) -> int:
         from ..odometry.sequential import SequentialOdometry
 
         cfg = _production_profile(cfg, args)
-        if cfg.enable_mapping or cfg.enable_loop_closure:
-            raise _unported("the mapping backend", "odometry/sequential_mapping.py, features/ and ba/")
         if args.format == "kitti":
             # raw u8 stereo pairs in; block-matching depth on the device
             # inside the scan step
@@ -98,7 +97,7 @@ def _cmd_odometry(args) -> int:
             # native u8/u16 transport: the device converts (depth_scale);
             # the host->device link moves the sensor's own bit depth
             stream, seq_cfg = ds.iter_raw(), _seq_config(cfg, depth_scale=tum.DEPTH_SCALE)
-        odo = SequentialOdometry(camera, seq_cfg, chunk=args.chunk)
+        odo = SequentialOdometry(camera, seq_cfg, chunk=args.chunk, mapping=_mapping_backend(cfg, args.device))
         t0 = time.perf_counter()
         results = odo.run(stream)
         elapsed = time.perf_counter() - t0
@@ -151,6 +150,18 @@ def _cmd_odometry(args) -> int:
         res = metrics.summarize(ds.groundtruth, est)
         print(json.dumps(res))
     return 0
+
+
+def _mapping_backend(cfg, device):
+    """The sequential scan's mapping backend where the configuration enables
+    mapping or loop closure, else None."""
+    if not (cfg.enable_mapping or cfg.enable_loop_closure):
+        return None
+    from ..odometry.sequential_mapping import ChunkMappingBackend
+
+    return ChunkMappingBackend(enable_ba=cfg.enable_mapping, enable_loop_closure=cfg.enable_loop_closure,
+                               ba_max_iterations=cfg.ba_max_iterations, pose_write_back=cfg.ba_pose_write_back,
+                               device=device)
 
 
 def _seq_config(cfg, stereo_baseline: float = 0.0, depth_scale: float = 1.0):
@@ -212,8 +223,6 @@ def _cmd_odometry_multi(args, cfg, log) -> int:
     if not args.fused:
         log.warning("multiple --dataset implies --fused (the batched scan)")
     cfg = _production_profile(cfg, args)
-    if cfg.enable_mapping or cfg.enable_loop_closure:
-        raise _unported("the mapping backend", "odometry/sequential_mapping.py, features/ and ba/")
     if args.format == "kitti":
         # each --dataset is a KITTI root; --sequence applies to all
         from ..io.kitti import KittiDataset
@@ -236,7 +245,10 @@ def _cmd_odometry_multi(args, cfg, log) -> int:
     else:
         intrinsics = [ds.intrinsics() for ds in datasets]
     cameras = [Camera.create(*k, device=args.device) for k in intrinsics]
-    odo = MultiSequenceOdometry(cameras, seq_cfg, chunk=args.chunk)
+    mappings = None
+    if cfg.enable_mapping or cfg.enable_loop_closure:
+        mappings = [_mapping_backend(cfg, args.device) for _ in datasets]
+    odo = MultiSequenceOdometry(cameras, seq_cfg, chunk=args.chunk, mappings=mappings)
     log.warning("tracking %d sequences (%s frames) in lock-step", len(datasets),
                 "/".join(str(len(d)) for d in datasets))
     t0 = time.perf_counter()
@@ -413,6 +425,7 @@ def _cmd_synthetic(args) -> int:
         features_min_gradient=10.0,
         solver_max_iterations=50,
         solver_min_step_size=1e-7,
+        enable_mapping=args.mapping,
     )
     camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2, device=args.device)
     if args.realistic:
@@ -429,15 +442,23 @@ def _cmd_synthetic(args) -> int:
     if args.fused:
         from ..odometry.sequential import SequentialConfig, SequentialOdometry
 
+        mapping = None
+        if args.mapping:
+            from ..odometry.sequential_mapping import ChunkMappingBackend
+
+            mapping = ChunkMappingBackend(enable_ba=True, device=args.device)
         odo = SequentialOdometry(
             camera,
             SequentialConfig(alignment=cfg.alignment_config(), n_levels=cfg.pyramid_levels),
             chunk=8,
+            mapping=mapping,
         )
         t0 = time.perf_counter()
         results = odo.run((i * dt_ns, f[0], f[1]) for i, f in enumerate(frames))
         elapsed = time.perf_counter() - t0
         est = {t / 1e9: lie_np.inv(p) for t, p, _ in results}
+        if mapping is not None:
+            n_landmarks = mapping.n_landmarks
     else:
         pipeline = OdometryPipeline(camera, cfg, device=args.device)
         t0 = time.perf_counter()

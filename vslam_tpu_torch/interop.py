@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 from .alignment.ic import AlignmentConfig, ICLevelData
+from .ba.bundle_adjustment import BaProblem
+from .ba.pose_graph import PoseGraph
 from .core.camera import Camera
 from .core.device import resolve
 from .core.frame import Frame
@@ -33,6 +35,8 @@ __all__ = [
     "ekf_state_from_numpy",
     "alignment_config_from_fields",
     "sequential_config_from_fields",
+    "ba_problem_from_numpy",
+    "pose_graph_from_numpy",
 ]
 
 
@@ -101,3 +105,22 @@ def sequential_config_from_fields(d: dict) -> SequentialConfig:
     d = dict(d)
     d["alignment"] = alignment_config_from_fields(d["alignment"])
     return SequentialConfig(**d)
+
+
+def ba_problem_from_numpy(p, device=None) -> BaProblem:
+    """A bundle-adjustment problem (`vslam_tpu.ba.bundle_adjustment.BaProblem`'s
+    fields); indices become int64, a missing obs_z stays None."""
+    f32 = lambda x: _t(x, device, torch.float32)  # noqa: E731
+    i64 = lambda x: _t(x, device, torch.int64)  # noqa: E731
+    bool_ = lambda x: _t(x, device, torch.bool)  # noqa: E731
+    return BaProblem(poses=se3_from_numpy(p.poses, device), pose_mask=bool_(p.pose_mask), points=f32(p.points),
+                     point_mask=bool_(p.point_mask), obs_frame=i64(p.obs_frame), obs_point=i64(p.obs_point),
+                     obs_uv=f32(p.obs_uv), obs_mask=bool_(p.obs_mask), fx=f32(p.fx), fy=f32(p.fy), cx=f32(p.cx),
+                     cy=f32(p.cy), obs_z=None if p.obs_z is None else f32(p.obs_z))
+
+
+def pose_graph_from_numpy(g, device=None) -> PoseGraph:
+    """A pose graph (`vslam_tpu.ba.pose_graph.PoseGraph`'s fields)."""
+    return PoseGraph(poses=se3_from_numpy(g.poses, device), edge_i=_t(g.edge_i, device, torch.int64),
+                     edge_j=_t(g.edge_j, device, torch.int64), edge_rel=se3_from_numpy(g.edge_rel, device),
+                     edge_info=_t(g.edge_info, device, torch.float32), edge_mask=_t(g.edge_mask, device, torch.bool))

@@ -4,7 +4,7 @@ A copy of the numpy half of `vslam_tpu.io.synthetic` (the plane and box
 scenes, the orbit and smooth trajectories, the Kinect-like sensor model):
 the port must run where JAX is not installed. Analytic scenes give exact intensity and depth for any camera
 pose, so ground-truth alignment and odometry checks need no dataset files.
-The device-batched `render_boxes_batch` is not ported yet.
+`render_boxes_batch` renders the box scene for many poses on a torch device.
 
 Scene: a plane n . X = d in world coordinates carrying a smooth procedural
 texture (sum of sinusoids). Rendering is closed-form per pixel: intersect the
@@ -14,7 +14,7 @@ pixel ray with the plane, evaluate the texture at the hit point.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -26,7 +26,9 @@ __all__ = [
     "default_scene",
     "render",
     "render_boxes",
+    "render_boxes_batch",
     "camera_matrix",
+    "loop_trajectory",
     "orbit_trajectory",
     "smooth_trajectory",
     "SensorModel",
@@ -187,6 +189,113 @@ def render_boxes(
         zbuf = np.where(hit, z, zbuf)
     depth = np.where(np.isfinite(zbuf), zbuf, 0.0)
     return intensity.astype(np.float32), depth.astype(np.float32)
+
+
+def render_boxes_batch(
+    K: np.ndarray,
+    poses,
+    shape: Tuple[int, int],
+    scene: BoxScene = BoxScene(),
+    batch: int = 16,
+    with_depth: bool = True,
+    device=None,
+) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """`render_boxes` for many world->camera poses on ``device`` (CUDA
+    unless named), ``batch`` poses a call in f32: returns (intensity (N, H,
+    W), depth (N, H, W) or None with ``with_depth=False``) as host f32
+    arrays. The same scene definition as the host renderer, which costs
+    seconds a frame at KITTI's size; `batch` bounds the device's working
+    set (a few (batch, H, W) f32 planes per surface)."""
+    import torch
+
+    from ..core.device import resolve
+
+    dev = resolve(device)
+    H, W = shape
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+
+    # every surface's plane and texture once: the background first, then
+    # the z-buffered patches in _patch_params order
+    def tex_of(p: PlaneScene):
+        freqs, phases, amps = _texture_params(p)
+        return freqs, phases, amps, p.base_intensity
+
+    bg = scene.background
+    n_bg = np.asarray(bg.normal, float)
+    n_bg = n_bg / np.linalg.norm(n_bg)
+    surfaces = [dict(n=n_bg, d=float(bg.d), origin=np.asarray(bg.origin, float), e1=np.asarray(bg.e1, float),
+                     e2=np.asarray(bg.e2, float), half=None, tex=tex_of(bg))]
+    for c, n, e1, e2, half, tex in _patch_params(scene):
+        surfaces.append(dict(n=n, d=float(np.dot(n, c)), origin=c, e1=e1, e2=e2, half=half, tex=tex_of(tex)))
+
+    xs, ys = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    rays_cam = f32(np.stack([xs, ys, np.ones_like(xs)], axis=-1) @ np.linalg.inv(K).T.astype(np.float32))
+
+    def render_batch(R_wc, o):  # (B, 3, 3), (B, 3) -> (B, H, W) x 2
+        rays = torch.einsum("hwj,bij->bhwi", rays_cam, R_wc)  # world rays
+        o = o[:, None, None, :]
+        inten = zbuf = None
+        for srf in surfaces:
+            n = f32(srf["n"])
+            denom = rays @ n
+            numer = np.float32(srf["d"]) - (o @ n)
+            ok = torch.abs(denom) > 1e-12
+            z = numer / torch.where(ok, denom, torch.full_like(denom, 1e-12))
+            hit = (z > 0.05) & ok
+            X = o + torch.where(hit, z, torch.zeros_like(z))[..., None] * rays
+            rel = X - f32(srf["origin"])
+            a = rel @ f32(srf["e1"])
+            b = rel @ f32(srf["e2"])
+            if srf["half"] is not None:
+                hit = hit & (torch.abs(a) < float(srf["half"][0])) & (torch.abs(b) < float(srf["half"][1]))
+                hit = hit & (z < zbuf)
+            freqs, phases, amps, base = srf["tex"]
+            t = torch.full_like(a, float(base))
+            for k in range(len(amps)):
+                t = t + np.float32(amps[k]) * torch.sin(np.float32(freqs[k, 0]) * a + np.float32(phases[k, 0])) \
+                    * torch.cos(np.float32(freqs[k, 1]) * b + np.float32(phases[k, 1]))
+            t = torch.clamp(t, 0.0, 255.0)
+            if srf["half"] is None:  # the background starts both buffers
+                inten = torch.where(hit, t, torch.zeros_like(t))
+                zbuf = torch.where(hit, z, torch.full_like(z, float("inf")))
+            else:
+                inten = torch.where(hit, t, inten)
+                zbuf = torch.where(hit, z, zbuf)
+        return inten, torch.where(torch.isfinite(zbuf), zbuf, torch.zeros_like(zbuf))
+
+    T_cw = np.stack([lie_np.inv(p) for p in poses]).astype(np.float32)
+    outs_i, outs_d = [], []
+    for s0 in range(0, len(poses), batch):
+        inten, depth = render_batch(f32(T_cw[s0 : s0 + batch, :3, :3]), f32(T_cw[s0 : s0 + batch, :3, 3]))
+        outs_i.append(inten.cpu().numpy())
+        if with_depth:
+            outs_d.append(depth.cpu().numpy())
+    return np.concatenate(outs_i), (np.concatenate(outs_d) if with_depth else None)
+
+
+def loop_trajectory(
+    n_frames: int,
+    extent: float = 0.8,
+    height: float = 0.15,
+    yaw: float = 0.25,
+    seed: int = 3,
+) -> list:
+    """Out-and-back loop: the camera leaves the start pose, sweeps sideways
+    with a height bob and a yaw toward the sweep, and returns exactly to
+    the start pose (poses[-1] == poses[0] == I), the canonical loop-closure
+    scenario. The twist profile is smooth, so constant-motion prediction
+    holds frame to frame."""
+    poses = []
+    for i in range(n_frames):
+        u = i / max(n_frames - 1, 1)
+        s = np.sin(np.pi * u)  # 0 -> 1 -> 0
+        c = np.sin(2 * np.pi * u)  # signed sweep (out positive, back negative)
+        xi = np.zeros(6)
+        xi[0] = extent * s
+        xi[1] = height * c
+        xi[4] = yaw * s
+        poses.append(lie_np.exp(xi))
+    return poses
 
 
 def orbit_trajectory(

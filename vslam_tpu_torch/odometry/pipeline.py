@@ -1,10 +1,12 @@
 """Per-frame odometry pipeline: the host loop that replaces the reference's
 ROS node graph.
 
-Port of `vslam_tpu.odometry.pipeline` (mapping off). The replayer's
-lock-step pairing becomes a Python for-loop; per frame (NodeMapping.cpp:
-142-180): frame build on the device, motion prediction, dense alignment,
-keyframe policy, map insert, trajectory append. Two schedules:
+Port of `vslam_tpu.odometry.pipeline`. The replayer's lock-step pairing
+becomes a Python for-loop; per frame (NodeMapping.cpp:142-180): frame build
+on the device, motion prediction, dense alignment, keyframe policy, map
+insert, on keyframes the mapping backend (feature tracking, windowed BA,
+loop closure; `enable_mapping`, `enable_loop_closure`), trajectory append.
+Two schedules:
 
 * the strict loop, `process_frame`: the host predicts in f64, the aligner
   builds, precomputes and aligns the frame against the cached data of its
@@ -22,9 +24,8 @@ that queue the device work and never wait for it.
     pipeline = OdometryPipeline(Camera.create(fx, fy, cx, cy), PipelineConfig())  # on CUDA
     trajectory = pipeline.run(stream)  # (t_ns, intensity, depth) items
 
-The mapping backend (`features/`, `ba/`), loop closure
-(`odometry/graph_backend.py`) and the live viewer (`viz/live.py`) are not
-ported yet: their options raise NotImplementedError at construction.
+The live viewer (`viz/live.py`) is not ported yet: its option raises
+NotImplementedError at construction.
 """
 
 from __future__ import annotations
@@ -108,12 +109,6 @@ class OdometryPipeline:
     intrinsics are moved there."""
 
     def __init__(self, camera: Camera, cfg: PipelineConfig = PipelineConfig(), device=None):
-        if cfg.enable_mapping:
-            raise NotImplementedError(
-                "the mapping backend is not ported yet: it comes with features/ and ba/")
-        if cfg.enable_loop_closure:
-            raise NotImplementedError(
-                "loop closure is not ported yet: it comes with odometry/graph_backend.py")
         if cfg.live_viz_port is not None:
             raise NotImplementedError("the live viewer is not ported yet: it comes with viz/live.py")
         self.cfg = cfg
@@ -144,6 +139,24 @@ class OdometryPipeline:
             log_img(name).enabled = True
         for name in cfg.log_plot_enabled:
             log_plt(name).enabled = True
+        # the keyframe backend (NodeMapping.cpp:162-180), on the pipeline's device
+        self._tracking = None
+        self._ba = None
+        self._graph = None
+        if cfg.enable_mapping or cfg.enable_loop_closure:
+            from ..features.tracking import FeatureTracking
+
+            self._tracking = FeatureTracking(device=self.device)
+        if cfg.enable_mapping:
+            from ..ba.bundle_adjustment import BundleAdjustment
+
+            self._ba = BundleAdjustment(max_iterations=cfg.ba_max_iterations,
+                                        compute_pose_covariance=(cfg.ba_pose_write_back == "gated"),
+                                        device=self.device)
+        if cfg.enable_loop_closure:
+            from .graph_backend import PoseGraphBackend
+
+            self._graph = PoseGraphBackend(device=self.device)
 
     def process_frame(self, t_ns: int, intensity, depth) -> Tuple[np.ndarray, np.ndarray]:
         """One frame of the strict loop: (H, W) images in a sensor dtype
@@ -180,10 +193,47 @@ class OdometryPipeline:
         self.keyframe_selection.update(frame)
         is_kf = self.keyframe_selection.is_keyframe() or self.map.last_kf() is None
         self.map.insert(frame, is_kf)
+        if is_kf and self._tracking is not None:
+            self._keyframe_backend(frame, t_ns)
         self.trajectory.append(t_ns, frame.pose, frame.cov)
         timer.record("pipeline.frame_total", time.perf_counter() - t0)
         self._log.debug("frame t=%d kf=%s dt=%.1fms", t_ns, is_kf, 1e3 * (time.perf_counter() - t0))
         return frame.pose, frame.cov
+
+    def _keyframe_backend(self, frame: HostFrame, t_ns: int) -> None:
+        """Track the keyframe, run the windowed BA and try a loop closure,
+        writing corrections back (NodeMapping.cpp:162-180). A failure is
+        logged on the "mapping" logger and the frame keeps its odometry
+        pose (NodeMapping.cpp:176-178)."""
+        try:
+            with timer.scope("pipeline.mapping"):
+                if self.cfg.enable_mapping:
+                    self.map.insert_points(self._tracking.track(frame, self.map))
+                else:  # loop closure only: features without landmarks
+                    self._tracking.extract(frame)
+            if self._ba is not None and len(self.map.keyframes()) >= 2:
+                from ..ba.bundle_adjustment import write_back
+
+                corrected = write_back(self._ba, self.map, self._graph, frame.id, frame.pose,
+                                       self.cfg.ba_pose_write_back)
+                if corrected is not None:
+                    frame.pose = corrected
+            if self._graph is not None:
+                with timer.scope("pipeline.loop_closure"):
+                    self._graph.add_keyframe(frame)
+                    corrections = self._graph.try_close(frame)
+                if corrections:
+                    # corrected keyframe poses into the window; the live pose
+                    # only when the correction beats the closure's own noise
+                    in_window = {f.id for f in self.map.keyframes()} | {f.id for f in self.map.frames()}
+                    for fid, T in corrections.items():
+                        if fid in in_window:
+                            self.map.update_pose(fid, T)
+                    if self._graph.last_closure_significant:
+                        frame.pose = corrections.get(frame.id, frame.pose)
+                        self.prediction.update(frame.pose, t_ns, cov=frame.cov)
+        except Exception as exc:
+            get_logger("mapping").warning("mapping backend failed: %s", exc)
 
     def run(self, stream: Iterable[Tuple[int, np.ndarray, np.ndarray]],
             pipelined: Optional[bool] = None) -> Trajectory:

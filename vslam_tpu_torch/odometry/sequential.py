@@ -1,6 +1,6 @@
 """Sequential odometry: the online tracker's per-frame update, chunked.
 
-Port of `vslam_tpu.odometry.sequential` (the mapping-off path). Per frame:
+Port of `vslam_tpu.odometry.sequential`. Per frame:
 pyramid build, motion prediction (NoMotion, ConstantMotion or the SE(3)
 EKF), joint alignment against {keyframe, last frame} from their cached
 per-level data (`ic.precompute_frame`), speed update and the keyframe
@@ -27,8 +27,9 @@ to it.
     odo = SequentialOdometry(Camera.create(fx, fy, cx, cy), cfg, chunk=32)  # on CUDA
     trajectory = odo.run(stream)  # [(t_ns, world->cam 4x4 f64, cov 6x6), ...]
 
-The mapping backend and the live viewer are not ported yet and raise
-NotImplementedError.
+With ``mapping=`` a `sequential_mapping.ChunkMappingBackend` runs full SLAM
+between chunks (the JAX package's `sequential.py:344-694`). The live viewer
+is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from ..core.frame import create_frame
 from ..core.se3 import SE3
 from ..kalman import ekf_se3
 from ..utils import timer
+from ..utils.log import get_logger
 from ..utils.tree import tree_map
 
 __all__ = [
@@ -309,23 +311,46 @@ def scan_odometry(state: SequentialState, intensity, depth, dt, live, camera: Ca
 class SequentialOdometry:
     """Host driver: feed (t_ns, intensity, depth) frames, collect a TUM
     trajectory. One chunk dispatch and one fetch per chunk; the frames
-    run on the camera's device."""
+    run on the camera's device.
 
-    def __init__(self, camera: Camera, cfg: SequentialConfig = SequentialConfig(),
-                 chunk: int = 16, mapping=None, viz=None):
-        if mapping is not None:
-            raise NotImplementedError(
-                "the mapping backend is not ported yet: it comes with features/, ba/ and "
-                "odometry/sequential_mapping.py"
-            )
+    ``mapping``: a `sequential_mapping.ChunkMappingBackend`, handed every
+    retired chunk (its keyframes, poses and staged images). With
+    ``async_mapping`` it runs on one worker thread beside the next chunks'
+    scans, and a correction measured on chunk k folds into the device
+    chain at chunk k + ``backend_depth``'s retire, a fixed point, so runs
+    repeat exactly; the worker re-bases each chunk's poses by the
+    corrections it has returned (`_worker_job`). Without it, each
+    correction folds before the next chunk is dispatched (the reference's
+    cadence)."""
+
+    def __init__(self, camera: Camera, cfg: SequentialConfig = SequentialConfig(), chunk: int = 16,
+                 mapping=None, async_mapping: bool = True, backend_depth: int = 2, viz=None):
         if viz is not None:
             raise NotImplementedError("the live viewer is not ported yet: it comes with viz/live.py")
         self.device = camera.fx.device
         self.camera = _device_camera(camera, self.device)
         self.cfg = cfg
         self.chunk = int(chunk)
+        self.mapping = mapping
+        self.async_mapping = bool(async_mapping) and mapping is not None
+        self.backend_depth = max(1, int(backend_depth))
+        self._backend_futures: List = []
+        # the cumulative correction as the worker sees it (every delta its
+        # jobs returned, folded into the device chain or not); only the
+        # worker thread touches it while a run is going
+        self._C_worker: np.ndarray = np.eye(4)
+        self._executor = None
+        if self.async_mapping:
+            import concurrent.futures
+
+            self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=1,
+                                                                   thread_name_prefix="mapping-backend")
         self.state: Optional[SequentialState] = None
         self._t_last_ns: Optional[int] = None
+        # the cumulative right-composed correction folded into the device
+        # chain; a chunk records it at dispatch, and re-basing its poses
+        # appends inv(C_at_dispatch) @ C_now
+        self._C_total: np.ndarray = np.eye(4)
         # per returned frame: alignment valid, keyframe (the first frame is
         # the first keyframe)
         self.valid: List[bool] = []
@@ -339,12 +364,41 @@ class SequentialOdometry:
         out.append((int(t_ns), np.eye(4), np.eye(6)))
         self.valid.append(True)
         self.is_kf.append(True)
+        if self.mapping is not None:
+            # the first frame is the backend's first keyframe
+            with timer.scope("seq.first_frame_backend"):
+                self.mapping.process_chunk([(int(t_ns), i0, d0)], [np.eye(4)], [np.eye(6)], [True],
+                                           self.camera, self.cfg)
+
+    def _join_stale_futures(self) -> None:
+        """Finish the worker jobs a prior aborted run left in flight (they
+        change the map and `_C_worker`), logging their errors: that run's
+        caller never saw them."""
+        while self._backend_futures:
+            try:
+                self._backend_futures.pop(0).result()
+            except Exception as exc:
+                get_logger("sequential").warning("stale backend job from an aborted prior run failed: %s", exc)
+
+    def _apply_correction(self, delta: np.ndarray) -> None:
+        """Right-compose a BA or loop-closure correction onto the device
+        chain before the next chunk: pose' = pose . delta, delta = T_est^-1 .
+        T_corr of the corrected keyframe. Future poses chain off the
+        corrected keyframe and every measured camera-relative motion is
+        kept (the correction pivots at the corrected camera)."""
+        d = SE3(torch.as_tensor(delta[:3, :3], dtype=torch.float32, device=self.device),
+                torch.as_tensor(delta[:3, 3], dtype=torch.float32, device=self.device))
+        self.state = self.state._replace(pose_kf=se3.orthonormalize(se3.compose(self.state.pose_kf, d)),
+                                         pose_last=se3.orthonormalize(se3.compose(self.state.pose_last, d)))
+        self._C_total = self._C_total @ np.asarray(delta, np.float64)
 
     def run(self, stream: Iterable[Tuple[int, np.ndarray, np.ndarray]]):
         """Returns [(t_ns, pose world->cam 4x4 f64, cov 6x6 f64), ...]. Each
         chunk is staged and dispatched before the previous one is fetched,
-        so its upload and launches overlap the previous chunk's device work.
-        A second call continues the trajectory."""
+        so its upload and launches overlap the previous chunk's device work
+        (with synchronous mapping the previous chunk retires first). A
+        second call continues the trajectory."""
+        self._join_stale_futures()
         out: List[Tuple[int, np.ndarray, np.ndarray]] = []
         buf: List[Tuple[int, np.ndarray, np.ndarray]] = []
         pending = None
@@ -354,56 +408,152 @@ class SequentialOdometry:
                 continue
             buf.append(item)
             if len(buf) == self.chunk:
-                pending = self._advance(_stage_chunk(buf, self._t_last_ns, self.device),
-                                        pending, out)
+                pending = self._advance(_stage_chunk(buf, self._t_last_ns, self.device), pending, out)
                 buf = []
         if buf:
             pending = self._advance(_stage_chunk(buf, self._t_last_ns, self.device), pending, out)
         if pending is not None:
-            self._collect(pending, out)
+            self._retire(pending, out)
+        if self.async_mapping:
+            self._drain_backend()  # the last correction reaches the device state
         return out
 
     def run_staged(self, first, chunks: List[StagedChunk]):
         """Replay a stream staged by `stage_stream` on this device: the same
         results as `run` on the same frames and chunking, with no image
-        upload. Starts a fresh trajectory from `first`."""
+        upload. Starts a fresh trajectory from `first`; in mapping mode give
+        each replay a fresh backend (the map is the backend's state)."""
+        self._join_stale_futures()
         self.valid, self.is_kf = [], []
+        self._C_total = np.eye(4)
+        self._C_worker = np.eye(4)
         out: List[Tuple[int, np.ndarray, np.ndarray]] = []
         self._start(first, out)
         pending = None
         for sc in chunks:
             pending = self._advance(sc, pending, out)
         if pending is not None:
-            self._collect(pending, out)
+            self._retire(pending, out)
+        if self.async_mapping:
+            self._drain_backend()
         return out
 
     def _advance(self, sc: StagedChunk, pending, out):
         """Dispatch a staged chunk (every slot live: chunks are not padded),
-        then fetch the previous one."""
+        then retire the previous one, which waits for the device while this
+        chunk's scan runs. Synchronous mapping retires first, so the
+        backend's correction is in the state this chunk is solved from."""
+        if self.mapping is not None and not self.async_mapping and pending is not None:
+            self._retire(pending, out)
+            pending = None
         with timer.scope("seq.dispatch"):
             self.state, poses, valid, cov, is_kf = scan_odometry(
                 self.state, sc.intensity[:, None], sc.depth[:, None], sc.dts[:, None],
                 None, self.camera, self.cfg,
             )
+            detect = self._dispatch_detect_early(sc)
         self._t_last_ns = sc.stamps[-1]
+        rec = (sc, poses, valid, cov, is_kf, self._C_total.copy(), detect)
         if pending is not None:
-            self._collect(pending, out)
-        return sc.stamps, poses, valid, cov, is_kf
+            self._retire(pending, out)
+        return rec
 
-    def _collect(self, rec, out) -> None:
+    def _dispatch_detect_early(self, sc: StagedChunk):
+        """Mapping mode: queue the feature extraction of all the chunk's
+        frames right behind its scan (the keyframe flags are not known yet;
+        queued any later, it would wait behind the next scan). Stereo
+        extracts the keyframes only, at the retire, so that block matching
+        does not run again on every frame."""
+        if self.mapping is None or self.cfg.stereo_baseline != 0.0:
+            return None
+        try:
+            return self.mapping.dispatch_detect(None, (sc.intensity, sc.depth), self.camera, self.cfg)
+        except Exception as exc:
+            get_logger("sequential").warning("early detect dispatch failed (the retire queues it): %s", exc)
+            return None
+
+    def _retire(self, rec, out) -> None:
+        """Fetch a dispatched chunk's results into the trajectory (odometry
+        estimates; corrections shape the future chain), then hand the chunk
+        to the mapping backend."""
+        sc, poses, valid, cov, is_kf, C_dispatch, detect = rec
+        results, kf_flags = self._collect(sc.stamps, poses, valid, cov, is_kf, out)
+        if self.mapping is None:
+            return
+        images = (sc.intensity, sc.depth)
+        if detect is None:
+            # stereo, or a failed early dispatch: queue the keyframes'
+            # extraction here, on this thread, so that the worker launches nothing
+            kf_js = [j for j, k in enumerate(kf_flags) if k]
+            if kf_js:
+                try:
+                    detect = self.mapping.dispatch_detect(kf_js, images, self.camera, self.cfg)
+                except Exception as exc:
+                    get_logger("sequential").warning("keyframe detect dispatch failed: %s", exc)
+        kwargs = {"device_images": images}
+        if detect is not None:
+            kwargs["detect_out"] = detect
+        # the backend reads the chunk's images from the device
+        buf = [(t, None, None) for t in sc.stamps]
+        args = (buf, [r[1] for r in results], [r[2] for r in results], kf_flags, self.camera, self.cfg)
+        if self.async_mapping:
+            self._backend_futures.append(self._executor.submit(self._worker_job, args, kwargs, C_dispatch))
+            # a bounded, deterministic lag: block on the oldest job only
+            # once more than backend_depth are outstanding
+            while len(self._backend_futures) > self.backend_depth:
+                self._drain_oldest()
+        else:
+            delta = self.mapping.process_chunk(*args, **kwargs)
+            if delta is not None:
+                self._apply_correction(delta)
+
+    def _worker_job(self, args, kwargs, C_dispatch):
+        """A backend job on the worker thread (jobs run in chunk order).
+        Corrections of earlier jobs may not have reached the device chain
+        yet; the chunk's poses carried C_dispatch, the worker's belief is
+        C_worker, so they are re-based by inv(C_dispatch) . C_worker and BA
+        never measures drift that is still on its way."""
+        buf, est_poses, covs, kf_flags, camera, cfg = args
+        rebase = np.linalg.inv(C_dispatch) @ self._C_worker
+        if not np.allclose(rebase, np.eye(4), atol=1e-12):
+            est_poses = [p @ rebase for p in est_poses]
+        delta = self.mapping.process_chunk(buf, est_poses, covs, kf_flags, camera, cfg, **kwargs)
+        if delta is not None:
+            self._C_worker = self._C_worker @ np.asarray(delta, np.float64)
+        return delta
+
+    def _drain_oldest(self) -> None:
+        """Wait for the oldest backend job and fold its correction into the
+        device chain (in chunk order, each once)."""
+        fut = self._backend_futures.pop(0)
+        with timer.scope("seq.drain_backend"):
+            delta = fut.result()
+        if delta is not None:
+            self._apply_correction(delta)
+
+    def _drain_backend(self) -> None:
+        """Finish every outstanding backend job (the end of a stream)."""
+        while self._backend_futures:
+            self._drain_oldest()
+
+    def _collect(self, stamps, poses, valid, cov, is_kf, out):
         """The chunk's one fetch (the host waits for the device here), then
-        f64 poses re-orthonormalized by SVD on the host."""
-        stamps, poses, valid, cov, is_kf = rec
+        f64 poses re-orthonormalized by SVD on the host. Returns the chunk's
+        results and keyframe flags."""
         K = len(stamps)
         with timer.scope("seq.collect"):
             flat = torch.cat([poses.R.reshape(K, 9), poses.t.reshape(K, 3), cov.reshape(K, 36),
                               valid.reshape(K, 1).float(), is_kf.reshape(K, 1).float()], dim=1)
             flat = flat.cpu().double().numpy()
+        results, kf_flags = [], []
         for j in range(K):
             T = np.eye(4)
             u, _, vt = np.linalg.svd(flat[j, :9].reshape(3, 3))
             T[:3, :3] = u @ vt
             T[:3, 3] = flat[j, 9:12]
-            out.append((stamps[j], T, flat[j, 12:48].reshape(6, 6)))
+            results.append((stamps[j], T, flat[j, 12:48].reshape(6, 6)))
             self.valid.append(bool(flat[j, 48]))
-            self.is_kf.append(bool(flat[j, 49]))
+            kf_flags.append(bool(flat[j, 49]))
+        self.is_kf.extend(kf_flags)
+        out.extend(results)
+        return results, kf_flags

@@ -1,6 +1,6 @@
 """Batched multi-sequence odometry: S sequences advanced in lock-step.
 
-Port of `vslam_tpu.parallel.sequences` (the mapping-off, one-device path).
+Port of `vslam_tpu.parallel.sequences` (the one-device path).
 The JAX package vmaps the sequential scan over S sequences; here the
 sequence axis S is the leading axis that every tensor of
 `odometry.sequential._step` already carries, so one step per frame serves
@@ -15,13 +15,14 @@ run out passes its state through and re-emits its last pose.
     odo = MultiSequenceOdometry([Camera.create(fx, fy, cx, cy)] * S, cfg, chunk=16)  # on CUDA
     trajectories = odo.run(streams)  # one [(t_ns, world->cam 4x4, cov 6x6), ...] per stream
 
-Per-sequence mapping backends and a mesh of devices are not ported yet and
-raise NotImplementedError.
+With ``mappings=`` each sequence has its own `ChunkMappingBackend` (full
+SLAM per sequence, the JAX package's `sequences.py:170-200, 336-470`). A
+mesh of devices is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, NamedTuple, Sequence, Tuple
+from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from ..odometry.sequential import (
     scan_odometry,
 )
 from ..utils import timer
+from ..utils.log import get_logger
 
 __all__ = [
     "stack_cameras",
@@ -123,19 +125,35 @@ class MultiSequenceOdometry:
     """
 
     def __init__(self, cameras: Sequence[Camera], cfg: SequentialConfig = SequentialConfig(),
-                 chunk: int = 16, mesh=None, mappings=None):
-        """The suite runs on its cameras' device (`stack_cameras`)."""
-        if mappings is not None:
-            raise NotImplementedError(
-                "per-sequence mapping backends are not ported yet: they come with "
-                "odometry/sequential_mapping.py, features/ and ba/"
-            )
+                 chunk: int = 16, mesh=None, mappings=None, async_mapping: bool = True):
+        """The suite runs on its cameras' device (`stack_cameras`).
+        ``mappings``: one `sequential_mapping.ChunkMappingBackend` per
+        sequence, each with its own map; its corrections fold into that
+        sequence's row of the batched chain. With ``async_mapping`` the
+        backends run on a small thread pool beside the next chunk's scan
+        and their corrections fold one chunk later, deterministically (the
+        contract of `SequentialOdometry(async_mapping=True)`)."""
         if mesh is not None:
             raise _no_mesh()
         self.cameras = stack_cameras(list(cameras))
         self.device = self.cameras.fx.device
         self.cfg = cfg
         self.chunk = int(chunk)
+        self.mappings = list(mappings) if mappings is not None else None
+        if self.mappings is not None and len(self.mappings) != len(cameras):
+            raise ValueError("need one mapping backend per sequence")
+        self.async_mapping = bool(async_mapping) and self.mappings is not None
+        self._backend_futures = None
+        self._executor = None
+        if self.async_mapping:
+            import concurrent.futures
+
+            self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=min(len(self.mappings), 4),
+                                                                   thread_name_prefix="suite-mapping")
+
+    def _camera(self, s: int) -> Camera:
+        """Sequence s's camera, leaves () on the suite's device."""
+        return Camera(*(leaf[s] for leaf in self.cameras))
 
     def _read_firsts(self, streams):
         """Each stream's first frame, checked for the shared geometry."""
@@ -222,38 +240,141 @@ class MultiSequenceOdometry:
         return self._run_chunks(firsts, iter(chunks))
 
     def _run_chunks(self, firsts, chunk_iter):
+        if self._backend_futures:
+            # jobs an aborted run left in flight: finish them (they change
+            # the maps) without folding their corrections into this run
+            for s, fut in self._backend_futures:
+                try:
+                    fut.result()
+                except Exception as exc:
+                    get_logger("sequential").warning(
+                        "stale backend job of sequence %d from an aborted prior run failed: %s", s, exc)
+            self._backend_futures = None
+        i0 = np.stack([np.asarray(f[1]) for f in firsts])
+        d0 = np.stack([np.asarray(f[2]) for f in firsts])
         with timer.scope("suite.init_states"):
-            states = init_states(_upload(np.stack([np.asarray(f[1]) for f in firsts]), self.device),
-                                 _upload(np.stack([np.asarray(f[2]) for f in firsts]), self.device),
-                                 self.cameras, self.cfg)
+            states = init_states(_upload(i0, self.device), _upload(d0, self.device), self.cameras, self.cfg)
         out: List[List[Tuple[int, np.ndarray, np.ndarray]]] = [
             [(int(f[0]), np.eye(4), np.eye(6))] for f in firsts
         ]
+        if self.mappings is not None:
+            # each sequence's frame 0 is its backend's first keyframe
+            for s, backend in enumerate(self.mappings):
+                backend.process_chunk([(int(firsts[s][0]), i0[s], d0[s])], [np.eye(4)], [np.eye(6)], [True],
+                                      self._camera(s), self.cfg)
         pending = None
         for sc in chunk_iter:
             with timer.scope("suite.dispatch"):
-                states, poses, _, cov, _ = scan_sequences(states, sc.intensity, sc.depth, sc.dts, sc.live,
-                                                          self.cameras, self.cfg)
+                states, poses, _, cov, is_kf = scan_sequences(states, sc.intensity, sc.depth, sc.dts, sc.live,
+                                                              self.cameras, self.cfg)
+            if self.mappings is not None:
+                prev_deltas = {}
+                if self.async_mapping:
+                    # fold chunk k-1's corrections while the device solves chunk k
+                    states, prev_deltas = self._drain_backends(states)
+                kf_rows, results = self._collect(out, sc.stamps, poses, cov, is_kf)
+                for s, d in prev_deltas.items():
+                    # chunk k was solved before chunk k-1's correction
+                    # landed: re-base the poses its backend sees, so that BA
+                    # does not measure the same drift again
+                    results[s] = [(t, T @ d, c) for (t, T, c) in results[s]]
+                if self.async_mapping:
+                    self._backend_futures = self._submit_backends(kf_rows, results, sc)
+                else:
+                    states = self._run_backends(states, kf_rows, results, sc)
+                continue
             # the previous chunk's fetch waits until this one is queued
             if pending is not None:
                 self._collect(out, *pending)
             pending = (sc.stamps, poses, cov)
         if pending is not None:
             self._collect(out, *pending)
+        if self.async_mapping:
+            self._drain_backends(states)  # surface errors, finish the maps
         return out
 
+    def _backend_args(self, kf_rows, results, sc: StagedSuiteChunk):
+        """Per sequence with frames in the chunk: (s, backend, process_chunk
+        args, kwargs). Each keyframe extraction is queued here, on the
+        driver's thread, so the backend threads launch nothing on the card."""
+        calls = []
+        for s, backend in enumerate(self.mappings):
+            n_s = len(sc.stamps[s])
+            if n_s == 0:
+                continue
+            cam = self._camera(s)
+            flags = [bool(k) for k in kf_rows[s][:n_s]]
+            images = (sc.intensity[s], sc.depth[s])
+            kwargs = {"device_images": images}
+            kf_js = [j for j, k in enumerate(flags) if k]
+            if kf_js:
+                kwargs["detect_out"] = backend.dispatch_detect(kf_js, images, cam, self.cfg)
+            args = ([(t, None, None) for t in sc.stamps[s]], [r[1] for r in results[s]],
+                    [r[2] for r in results[s]], flags, cam, self.cfg)
+            calls.append((s, backend, args, kwargs))
+        return calls
+
+    def _run_backends(self, states, *work):
+        """Synchronous mode: each sequence's chunk to its backend, the
+        corrections folded at once (`SequentialOdometry._apply_correction`
+        for the suite)."""
+        deltas = {}
+        for s, backend, a, kw in self._backend_args(*work):
+            delta = backend.process_chunk(*a, **kw)
+            if delta is not None:
+                deltas[s] = np.asarray(delta, np.float64)
+        return self._fold(states, deltas)
+
+    def _submit_backends(self, *work):
+        return [(s, self._executor.submit(backend.process_chunk, *a, **kw))
+                for s, backend, a, kw in self._backend_args(*work)]
+
+    def _drain_backends(self, states):
+        """Wait for the previous chunk's backend jobs and fold their
+        corrections. Returns (states, per-sequence deltas)."""
+        if not self._backend_futures:
+            return states, {}
+        # detach first: if a job raises, the rest must not fold into a retry
+        futures, self._backend_futures = self._backend_futures, None
+        deltas = {}
+        for s, fut in futures:
+            delta = fut.result()
+            if delta is not None:
+                deltas[s] = np.asarray(delta, np.float64)
+        return self._fold(states, deltas), deltas
+
+    def _fold(self, states, deltas):
+        if not deltas:
+            return states
+        S = len(self.mappings)
+        dR = np.broadcast_to(np.eye(3, dtype=np.float32), (S, 3, 3)).copy()
+        dt = np.zeros((S, 3), np.float32)
+        for s, d in deltas.items():
+            dR[s] = d[:3, :3]
+            dt[s] = d[:3, 3]
+        return _fold_corrections(states, torch.as_tensor(dR, device=self.device),
+                                 torch.as_tensor(dt, device=self.device))
+
     @staticmethod
-    def _collect(out, stamps, poses: SE3, cov: torch.Tensor) -> None:
+    def _collect(out, stamps, poses: SE3, cov: torch.Tensor, is_kf: Optional[torch.Tensor] = None):
         """The chunk's one fetch, then f64 poses re-orthonormalized by SVD
-        on the host."""
+        on the host. With ``is_kf``, returns (keyframe flags (S, K), the
+        chunk's results per sequence)."""
         with timer.scope("suite.collect"):
             S, K = poses.t.shape[:2]
-            flat = torch.cat([poses.R.reshape(S, K, 9), poses.t.reshape(S, K, 3), cov.reshape(S, K, 36)],
-                             dim=-1).cpu().double().numpy()
+            parts = [poses.R.reshape(S, K, 9), poses.t.reshape(S, K, 3), cov.reshape(S, K, 36)]
+            if is_kf is not None:
+                parts.append(is_kf.reshape(S, K, 1).to(cov.dtype))
+            flat = torch.cat(parts, dim=-1).cpu().double().numpy()
+        results = [[] for _ in stamps]
         for s, seq_stamps in enumerate(stamps):
             for j, t_ns in enumerate(seq_stamps):
                 T = np.eye(4)
                 u, _, vt = np.linalg.svd(flat[s, j, :9].reshape(3, 3))
                 T[:3, :3] = u @ vt
                 T[:3, 3] = flat[s, j, 9:12]
-                out[s].append((t_ns, T, flat[s, j, 12:48].reshape(6, 6)))
+                row = (t_ns, T, flat[s, j, 12:48].reshape(6, 6))
+                out[s].append(row)
+                results[s].append(row)
+        if is_kf is not None:
+            return flat[..., 48] > 0.5, results

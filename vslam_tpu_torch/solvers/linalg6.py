@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["cholesky_solve", "cholesky_logdet_solve", "inv_psd"]
+__all__ = ["cholesky_solve", "cholesky_logdet_solve", "inv_psd", "inv3"]
 
 
 def _chol_factor(A: torch.Tensor):
@@ -85,3 +85,25 @@ def inv_psd(A: torch.Tensor) -> torch.Tensor:
     L = [[None if x is None else x[..., None] for x in row] for row in L]
     eye = torch.eye(N, dtype=A.dtype, device=A.device).expand(*A.shape[:-2], N, N)
     return _substitute(L, eye).transpose(-1, -2)  # row i solved for e_i -> column i
+
+
+def inv3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form (adjugate) inverse of (..., 3, 3): the bundle
+    adjustment's point blocks, batched."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-30, det, torch.full_like(det, 1e-30))
+    rows = [torch.stack([A11, A12, A13], dim=-1), torch.stack([A21, A22, A23], dim=-1),
+            torch.stack([A31, A32, A33], dim=-1)]
+    return torch.stack(rows, dim=-2) * inv_det[..., None, None]
