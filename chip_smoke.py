@@ -169,7 +169,25 @@ Phases, each ending in torch.cuda.synchronize():
                 the production CG caps reported beside it (an open fault:
                 PCG stalls there, as the JAX function does); both times, the
                 CG iterations
-Every phase that runs a mapping backend (17, 18, 23-25) fails on any
+ 27. viewer and resume — (a) phase 23's streamed slam run with
+                `LiveViz(port=0)`: /state.json holds 64 frames, the run's
+                keyframes, its last pose (camera-in-world, within 1e-6) and
+                the map's landmarks, / the page; 189 whole-level launches and
+                every pose bit-equal to phase 23's run (the viewer only
+                reads); frames/s with and without the viewer. (b) the
+                odometry profile checkpointed after 32 frames and resumed in
+                a fresh SequentialOdometry from a fresh state on the card: the stamps
+                and every pose within 1e-4 of the uninterrupted run, 3 x 63
+                launches, every loaded leaf on the card with its dtype; the
+                file's size and the save and load ms; the slam run's
+                landmarks through save_landmarks / load_landmarks. (c) phase
+                17's 16 frames with enable_mapping and live_viz_port=0. (d)
+                the CLI's synthetic with --live-viz 0 (host loop, --fused
+                --mapping; ATE < 0.01 m) and odometry on two TUM directories
+                with --live-viz 0 (the JAX CLI's warning, no viewer). (e)
+                trace() around one chunk: the "viz.publish" span in
+                trace.json; device_memory_stats() after (a)
+Every phase that runs a mapping backend (17, 18, 23-25, 27) fails on any
 warning of the "mapping" logger (its graceful degradation hides nothing).
 Phase 18's second half runs after phase 21, on its frames and phase 20's:
 `odometry --format kitti` on a KITTI root of 8 pairs (host loop, --fused,
@@ -2530,26 +2548,35 @@ JAX_LOOP_ATES_M = (0.0308, 0.0162, 0.0222)
 
 
 @contextlib.contextmanager
+def _logged(logger_name, level):
+    """The messages of ``logger_name`` at ``level`` or above inside the block."""
+    import logging
+
+    messages = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    logger = logging.getLogger(logger_name)
+    handler = Keep(level)
+    logger.addHandler(handler)
+    try:
+        yield messages
+    finally:
+        logger.removeHandler(handler)
+
+
+@contextlib.contextmanager
 def _mapping_warnings(label):
     """Fail the phase if the mapping backend logs a warning inside the
     block: its graceful degradation must hide nothing on the card."""
     import logging
 
-    records = []
-
-    class Keep(logging.Handler):
-        def emit(self, record):
-            records.append(record)
-
-    logger = logging.getLogger("vslam_tpu_torch.mapping")
-    handler = Keep(logging.WARNING)
-    logger.addHandler(handler)
-    try:
+    with _logged("vslam_tpu_torch.mapping", logging.WARNING) as messages:
         yield
-    finally:
-        logger.removeHandler(handler)
-    if records:
-        raise AssertionError(f"{label}: the mapping backend warned: {[r.getMessage() for r in records[:5]]}")
+    if messages:
+        raise AssertionError(f"{label}: the mapping backend warned: {messages[:5]}")
 
 
 class _WorkerOps:
@@ -2845,7 +2872,7 @@ def _slam(poses, stream, card, log):
     _detect_profile(b_best, None, (chunks[0].intensity, chunks[0].depth), camera, cfg,
                     f"phase 23 detection of a {len(chunks[0].stamps)}-frame chunk at {H}x{W}", card, log)
     err = _levels_vs_plain(captured, "phase 23 slam", card, log)
-    return launches[0], err
+    return launches[0], err, res_stream
 
 
 def _drift_stream(device):
@@ -3073,6 +3100,346 @@ def _graph_at_scale(device, card, log):
     log("phase 26 pose graph, the five-loop chain in f32 (open fault, not gated): " + "; ".join(
         f"{name} chi2 {c1:.6g} in {t:.3f} s ({it} CG iterations), translations {float((o.t.double() - od.t).abs().max()):.3e} "
         f"m from the f64 dense solve" for name, (o, _, c1, t, it) in runs) + f" {card}")
+
+
+# phase 27: the viewer, checkpoint / resume and profiling on the main path
+RESUME_SPLIT = 32  # frames of the odometry profile before the checkpoint
+RESUME_POSE_TOL = 1e-4  # tests/test_checkpoint.py's gate, SE(3) distance
+
+
+def _http(port, path):
+    """GET http://127.0.0.1:port/path with a 5 s timeout."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=5) as r:
+        if r.status != 200:
+            raise AssertionError(f"GET {path}: status {r.status}")
+        return r.read()
+
+
+@contextlib.contextmanager
+def _recording_viewers():
+    """While the block runs, every `LiveViz` an entry point builds (they
+    import it from `vslam_tpu_torch.viz` when they need one) is kept in the
+    list the block gets, and closed at its end."""
+    import vslam_tpu_torch.viz as viz_pkg
+
+    made, cls = [], viz_pkg.LiveViz
+
+    class Recording(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    viz_pkg.LiveViz = Recording
+    try:
+        yield made
+    finally:
+        viz_pkg.LiveViz = cls
+        for v in made:
+            v.close()
+
+
+def _viewer_slam(slam_poses, slam_stream, slam_streamed, card, log):
+    """Phase 27 (a): phase 23's streamed SLAM run with `LiveViz(port=0)`,
+    beside the same run without it; the viewer's state over HTTP against
+    the run. Returns (launches, viewer run's backend)."""
+    import dataclasses
+
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry
+    from vslam_tpu_torch.odometry.sequential_mapping import ChunkMappingBackend
+    from vslam_tpu_torch.viz import LiveViz
+
+    cfg = SequentialConfig(alignment=dataclasses.replace(_production_cfg(), interpolation="bilinear"),
+                           depth_scale=1.0 / 5000.0, n_levels=N_LEVELS, kf_period=5)
+    camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    n = len(slam_stream)
+
+    def run(viz):
+        backend = ChunkMappingBackend(enable_ba=True)
+        odo = SequentialOdometry(camera, cfg, chunk=SLAM_CHUNK, mapping=backend, viz=viz)
+        _reset_launches()
+        _sync()
+        t0 = time.perf_counter()
+        res = odo.run(iter(slam_stream))
+        _sync()
+        return res, time.perf_counter() - t0, _launches(), odo, backend
+
+    viz = LiveViz(port=0)
+    spent = [0.0]  # the host's seconds inside the viewer's publish calls
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return call
+
+    for name in ("publish_odometry", "publish_keyframe", "publish_landmarks"):
+        setattr(viz, name, timed(getattr(viz, name)))
+    try:
+        with _mapping_warnings("phase 27 (a)"):
+            # in turns, so that both share the host's state: off, on, on, off
+            res_off, wall_off, launches_off, _, _ = run(None)
+            res, wall, launches, odo, backend = run(viz)
+            state = json.loads(_http(viz.port, "/state.json"))
+            page = _http(viz.port, "/").decode()
+            publish_s = spent[0]
+            wall_on2 = run(viz)[1]
+            wall_off2 = run(None)[1]
+    finally:
+        viz.close()
+    T_last = lie_np.inv(res[-1][1])
+    same_23 = sum(np.array_equal(a[1], b[1]) and a[0] == b[0] for a, b in zip(res, slam_streamed))
+    same_off = sum(np.array_equal(a[1], b[1]) for a, b in zip(res, res_off))
+    pos_err = float(np.abs(np.asarray(state["position"]) - T_last[:3, 3]).max())
+    ate = _ate(slam_poses, res)
+    log(f"phase 27 (a) slam with LiveViz(port=0), {n} noisy frames at {H}x{W} (phase 23's run): whole-level "
+        f"launches {launches} (expected ({N_LEVELS * (n - 1)}, 0); without the viewer {launches_off}); poses "
+        f"bit-equal to phase 23's streamed run {same_23}/{len(slam_streamed)}, to this phase's run without the "
+        f"viewer {same_off}/{len(res_off)}; ATE {ate:.5f} m; /state.json: n_frames {state['n_frames']}, "
+        f"n_keyframes {state['n_keyframes']} (the run's flags {sum(odo.is_kf)}), n_landmarks "
+        f"{state['n_landmarks']} (the map's {backend.n_landmarks}), t_ns {state['t_ns']} (last pose "
+        f"{res[-1][0]}), position off the last camera-in-world by {pos_err:.3e} m; GET / {len(page)} bytes")
+    log(f"phase 27 (a) slam frames/s streamed, runs in turns off, on, on, off: with the viewer "
+        f"{n / wall:.2f}, {n / wall_on2:.2f} ({wall:.3f}, {wall_on2:.3f} s), without {n / wall_off:.2f}, "
+        f"{n / wall_off2:.2f} ({wall_off:.3f}, {wall_off2:.3f} s); the publish calls of the first run with the "
+        f"viewer took {publish_s * 1e3:.3f} ms of host time ({publish_s * 1e6 / n:.1f} us a frame) {card}")
+    ok = (state["n_frames"] == n and state["n_keyframes"] == sum(odo.is_kf) and state["t_ns"] == res[-1][0]
+          and pos_err <= 1e-6 and state["n_landmarks"] > 0 and launches == (N_LEVELS * (n - 1), 0)
+          and same_23 == len(res) == len(slam_streamed) and "<svg" in page and "state.json" in page)
+    if not ok:
+        raise AssertionError(f"phase 27 (a): the viewer's state, the launches or the poses are off: {state}")
+    return launches[0], backend
+
+
+def _resume(poses, stream, card, log):
+    """Phase 27 (b): the odometry profile's 64 frames, checkpointed after
+    RESUME_SPLIT and resumed in a fresh SequentialOdometry from a fresh state, against
+    the uninterrupted run. Returns the split runs' launches."""
+    import os
+    import tempfile
+
+    import torch
+
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.odometry.sequential import SequentialOdometry, init_state
+    from vslam_tpu_torch.utils import checkpoint
+    from vslam_tpu_torch.utils.tree import tree_leaves
+
+    chunk = PROFILES["odometry"][0]
+    cfg = _odometry_cfg("odometry")
+    camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    full = SequentialOdometry(camera, cfg, chunk=chunk).run(iter(stream))
+    _reset_launches()
+    odo1 = SequentialOdometry(camera, cfg, chunk=chunk)
+    first = odo1.run(iter(stream[:RESUME_SPLIT]))
+    saved = tree_leaves(odo1.state)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        _sync()
+        t0 = time.perf_counter()
+        checkpoint.save_sequential(path, odo1.state, odo1._t_last_ns)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(path)
+        odo2 = SequentialOdometry(camera, cfg, chunk=chunk)
+        like = init_state(stream[0][1], stream[0][2], camera, cfg)
+        _sync()
+        t0 = time.perf_counter()
+        state, t_last = checkpoint.load_sequential(path, like)
+        _sync()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    loaded = tree_leaves(state)
+    placed = all(a.device == camera.fx.device and a.dtype == b.dtype for a, b in zip(loaded, saved))
+    equal = all(torch.equal(a, b) for a, b in zip(loaded, saved))
+    odo2.state, odo2._t_last_ns = state, t_last
+    resumed = first + odo2.run(iter(stream[RESUME_SPLIT:]))
+    _sync()
+    launches = _launches()
+    gaps = [float(np.linalg.norm(lie_np.log(lie_np.relative(a[1], b[1])))) for a, b in zip(resumed, full)]
+    same = sum(np.array_equal(a[1], b[1]) for a, b in zip(resumed, full))
+    dtypes = sorted({str(x.dtype).removeprefix("torch.") for x in saved})
+    log(f"phase 27 (b) checkpoint after {RESUME_SPLIT} of {len(stream)} frames at {H}x{W} (odometry profile, fused_gn "
+        f"bf16): {len(saved)} leaves ({', '.join(dtypes)}; bf16 leaves {sum(x.dtype == torch.bfloat16 for x in saved)}: "
+        f"the state keeps f32 templates, the solve samples a bf16 copy of the image), every loaded leaf on "
+        f"{camera.fx.device} with its saved dtype {placed}, equal to the saved state {equal}; file {size} bytes, save {save_ms:.1f} ms, "
+        f"load {load_ms:.1f} ms {card}")
+    log(f"phase 27 (b) resumed against uninterrupted: stamps equal {[r[0] for r in resumed] == [r[0] for r in full]}, "
+        f"largest pose gap {max(gaps):.3e} (gate {RESUME_POSE_TOL}), bit-equal poses {same}/{len(full)}; whole-level "
+        f"launches of the two halves {launches} (expected ({N_LEVELS * (len(stream) - 1)}, 0))")
+    if not (placed and equal and [r[0] for r in resumed] == [r[0] for r in full] and max(gaps) < RESUME_POSE_TOL
+            and launches == (N_LEVELS * (len(stream) - 1), 0)):
+        raise AssertionError(f"phase 27 (b): the resumed scan is off: gap {max(gaps)}, launches {launches}")
+    return launches[0]
+
+
+def _landmarks_round_trip(backend, log):
+    """Phase 27 (b), its map: the slam run's landmarks through
+    save_landmarks / load_landmarks."""
+    import os
+    import tempfile
+
+    from vslam_tpu_torch.utils import checkpoint
+
+    lms = backend.map.points()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "landmarks.npz")
+        checkpoint.save_landmarks(path, lms)
+        back = checkpoint.load_landmarks(path)
+        size = os.path.getsize(path)
+    same = (len(back) == len(lms) > 0 and [b.id for b in back] == [a.id for a in lms]
+            and np.array_equal(np.stack([b.position for b in back]), np.stack([a.position for a in lms])))
+    log(f"phase 27 (b) landmarks of the slam run: {len(lms)} saved, {len(back)} loaded, ids and positions equal "
+        f"{same}; file {size} bytes")
+    if not same:
+        raise AssertionError("phase 27 (b): the landmarks did not round-trip")
+
+
+def _viewer_pipeline(poses, stream, device, card, log):
+    """Phase 27 (c): phase 17's `enable_mapping` run with live_viz_port=0."""
+    import dataclasses
+
+    from vslam_tpu_torch.config import PipelineConfig
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.odometry.pipeline import OdometryPipeline
+
+    cfg = PipelineConfig(sampler="fused_gn", image_dtype="bfloat16", features_max_points=2048, enable_mapping=True)
+    cfg = dataclasses.replace(cfg, live_viz_port=0)
+    mapped = stream[:PIPE_MAPPING_FRAMES]
+    pipe = OdometryPipeline(Camera(FX, FX, (W - 1) / 2, (H - 1) / 2), cfg, device=device)
+    try:
+        with _mapping_warnings("phase 27 (c)"):
+            _reset_launches()
+            t0 = time.perf_counter()
+            traj = pipe.run(iter(mapped))
+            _sync()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+        state = json.loads(_http(pipe.viz.port, "/state.json"))
+    finally:
+        pipe.viz.close()
+    ate = _trajectory_ate(poses[:len(mapped)], traj)
+    log(f"phase 27 (c) pipeline with enable_mapping and live_viz_port=0: {len(mapped)} frames, viewer n_frames "
+        f"{state['n_frames']}, n_keyframes {state['n_keyframes']}, n_landmarks {state['n_landmarks']}; whole-level "
+        f"launches {launches} (expected ({N_LEVELS * (len(mapped) - 1)}, 0)); ATE {ate:.5f} m (gate 0.01); "
+        f"{len(mapped) / wall:.2f} frames/s {card}")
+    if not (state["n_frames"] == len(mapped) and state["n_landmarks"] > 0 and ate < 0.01
+            and launches == (N_LEVELS * (len(mapped) - 1), 0)):
+        raise AssertionError(f"phase 27 (c): viewer {state['n_frames']} frames, {state['n_landmarks']} landmarks, "
+                             f"ATE {ate}, launches {launches}")
+    return launches[0]
+
+
+def _viewer_cli(tum_sets, card, log):
+    """Phase 27 (d): `synthetic --live-viz 0` at 480x640 on the host loop
+    and with --fused --mapping, and `odometry` with two --dataset values
+    and --live-viz 0 (a warning, no viewer). Returns the launches."""
+    import logging
+    import os
+    import tempfile
+
+    launches = 0
+    for flags in ([], ["--fused", "--mapping"]):
+        with _recording_viewers() as made, _mapping_warnings(f"phase 27 (d) synthetic {flags}"):
+            _reset_launches()
+            rc, lines = _cli_json(["synthetic", "--frames", str(CLI_FRAMES), "--height", str(H), "--width", str(W),
+                                   "--fx", str(FX), "--live-viz", "0", *flags])
+            launches += _launches()[0]
+            frames = [v.state()["n_frames"] for v in made]
+        (res,) = [json.loads(line) for line in lines if line.startswith("{")]
+        log(f"phase 27 (d) CLI synthetic --live-viz 0 {' '.join(flags) or '(host loop)'}: exit {rc}, {res}; the "
+            f"viewer's n_frames {frames} {card}")
+        if rc != 0 or not res["ate_rmse_m"] < 0.01 or frames != [CLI_FRAMES]:
+            raise AssertionError(f"phase 27 (d) synthetic {flags}: exit {rc}, {res}, viewers {frames}")
+    if not _png_reader():
+        log("phase 27 (d) CLI odometry suite --live-viz 0: not run, no PNG reader here")
+        return launches
+    with tempfile.TemporaryDirectory() as d:
+        tums = [os.path.join(d, f"tum{k}") for k in range(2)]
+        for root, (poses, stream) in zip(tums, tum_sets):
+            _write_tum(root, poses, stream[:PIPE_SHORT_FRAMES])
+        with _recording_viewers() as made, _logged("vslam_tpu_torch.system", logging.WARNING) as warned:
+            _reset_launches()
+            rc, lines = _cli_json(["odometry", "--dataset", tums[0], "--dataset", tums[1], "--intrinsics",
+                                   f"{FX},{FX},{(W - 1) / 2},{(H - 1) / 2}", "--fused", "--live-viz", "0",
+                                   "--out", os.path.join(d, "suite.txt")])
+            launches += _launches()[0]
+    said = [m for m in warned if "--live-viz is not supported" in m]
+    log(f"phase 27 (d) CLI odometry suite of two TUM directories --live-viz 0: exit {rc}, warned {said}, viewers "
+        f"built {len(made)}")
+    if rc != 0 or not said or made:
+        raise AssertionError(f"phase 27 (d) suite: exit {rc}, warning {said}, viewers {len(made)}")
+    return launches
+
+
+def _profiled_chunk(slam_stream, card, log):
+    """Phase 27 (e): `trace()` around one scan chunk with the viewer on,
+    whose publishing runs under `annotate("viz.publish")`."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry
+    from vslam_tpu_torch.utils import profiling
+    from vslam_tpu_torch.viz import LiveViz
+
+    cfg = SequentialConfig(alignment=dataclasses.replace(_production_cfg(), interpolation="bilinear"),
+                           depth_scale=1.0 / 5000.0, n_levels=N_LEVELS, kf_period=5)
+    viz = LiveViz(port=0)
+    try:
+        odo = SequentialOdometry(Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2), cfg, chunk=SLAM_CHUNK, viz=viz)
+        with tempfile.TemporaryDirectory() as d:
+            with profiling.trace(d):
+                _reset_launches()
+                odo.run(iter(slam_stream[:SLAM_CHUNK + 1]))
+                _sync()
+                launches = _launches()
+            with open(os.path.join(d, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+    finally:
+        viz.close()
+    spans = [e for e in events if e.get("name") == "viz.publish"]
+    kernels = sum(1 for e in events if "solve_level_kernel" in str(e.get("name")))
+    log(f"phase 27 (e) trace() of one {SLAM_CHUNK}-frame chunk with the viewer: {len(events)} events, "
+        f"'viz.publish' spans {len(spans)} ({sum(e.get('dur', 0) for e in spans):.0f} us), solve_level_kernel "
+        f"events {kernels}; whole-level launches {launches} {card}")
+    if not spans or launches != (N_LEVELS * SLAM_CHUNK, 0):
+        raise AssertionError(f"phase 27 (e): no viz.publish span in trace.json or launches {launches}")
+    return launches[0]
+
+
+def _memory_after(label, card, log):
+    """Phase 27 (e): `device_memory_stats()` after a phase."""
+    from vslam_tpu_torch.utils.profiling import device_memory_stats
+
+    stats = device_memory_stats()
+    log(f"phase 27 (e) device_memory_stats() after {label}: bytes_in_use {stats.get('bytes_in_use')}, peak "
+        f"{stats.get('peak_bytes_in_use', 0) / 2**20:.1f} MiB, reserved {stats.get('bytes_reserved', 0) / 2**20:.1f} "
+        f"MiB, limit {stats.get('bytes_limit', 0) / 2**30:.2f} GiB {card}")
+    if not (stats.get("bytes_in_use", 0) > 0 and stats["peak_bytes_in_use"] >= stats["bytes_in_use"]):
+        raise AssertionError(f"phase 27 (e): device_memory_stats {stats}")
+
+
+def _viewer_and_resume(slam, odometry, robust, device, card, log):
+    """Phase 27: (a) the slam run with the viewer, (b) checkpoint / resume
+    and the landmark files, (c) the pipeline's viewer, (d) the CLI's
+    --live-viz, (e) trace() with annotate and device_memory_stats. Returns
+    the phase's kernel-1 launches."""
+    slam_poses, slam_stream, slam_streamed = slam
+    launches, backend = _viewer_slam(slam_poses, slam_stream, slam_streamed, card, log)
+    _memory_after("(a)", card, log)
+    launches += _resume(*odometry, card, log)
+    _landmarks_round_trip(backend, log)
+    launches += _viewer_pipeline(*odometry, device, card, log)
+    launches += _viewer_cli([odometry, robust], card, log)
+    launches += _profiled_chunk(slam_stream, card, log)
+    return launches
 
 
 def result_line(kind: str) -> dict:
@@ -3327,7 +3694,7 @@ def main() -> int:
     t0 = time.perf_counter()
     slam_poses, slam_stream = _slam_stream()
     log(f"phase 23: rendered {len(slam_stream)} noisy frames at {H}x{W} in {time.perf_counter() - t0:.1f} s")
-    launches_slam, err_slam = _slam(slam_poses, slam_stream, card, log)
+    launches_slam, err_slam, slam_streamed = _slam(slam_poses, slam_stream, card, log)
     _sync()
     log(f"phase 23 took {time.perf_counter() - t0:.1f} s")
 
@@ -3354,6 +3721,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _graph_at_scale(device, card, log)
     log(f"phase 26 took {time.perf_counter() - t0:.1f} s")
+
+    # 27. the viewer, checkpoint / resume and profiling
+    t0 = time.perf_counter()
+    launches_viewer = _viewer_and_resume((slam_poses, slam_stream, slam_streamed), streams["odometry"],
+                                         streams["robust"], device, card, log)
+    _sync()
+    log(f"phase 27 took {time.perf_counter() - t0:.1f} s")
     max_abs = max(max_abs, err_kitti, err_suite, err_slam, err_loop)
     max_abs_robust = max(max_abs_robust, err_drift)
     max_abs_robust = max(max_abs_robust, err_sizes["solve_level_fused_robust"])
@@ -3370,7 +3744,7 @@ def main() -> int:
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:533",
         "launches": launches_pairs[0] + launches_odo["odometry"] + launches_pipe["solve_level_fused"]
-        + launches_kitti + launches_suite + launches_slam + launches_loop,
+        + launches_kitti + launches_suite + launches_slam + launches_loop + launches_viewer,
         "max_abs_err": max_abs,
         "ms": sum(ms_k.values()),
         "plain_ms": sum(ms_p.values()),

@@ -943,3 +943,119 @@ def test_async_worker_launches_nothing_on_the_card_under_auto(device, compute_de
         assert ops.by_thread["MainThread"] > 0  # the first frame's backend call, on the card
     for (_, Ta, _), (_, Tb, _) in zip(runs[0], runs[-1]):
         np.testing.assert_allclose(Ta, Tb, atol=1e-9)
+
+
+def _small_stream(n, h=96, w=128, fx=110.0):
+    K = synthetic.camera_matrix(fx, fx, (w - 1) / 2, (h - 1) / 2)
+    poses = synthetic.smooth_trajectory(n, trans_amp=0.06, rot_amp=0.02)
+    items = []
+    for i, p in enumerate(poses):
+        inten, depth = synthetic.render(K, p @ lie_np.inv(poses[0]), (h, w))
+        items.append((i * 33_333_333, np.round(inten).astype(np.uint8), np.round(depth * 5000).astype(np.uint16)))
+    return items
+
+
+def _bf16_cfg():
+    from vslam_tpu_torch.odometry.sequential import SequentialConfig
+
+    return SequentialConfig(alignment=ic.AlignmentConfig(min_gradient=10.0, include_prior=True, sampler="fused_gn",
+                                                         image_dtype="bfloat16", max_points=2048),
+                            depth_scale=1 / 5000, kf_period=3)
+
+
+def test_checkpoint_round_trips_a_bf16_state_onto_the_card(device, tmp_path):
+    """A state on the card with bf16 leaves is saved (one wait for all its
+    copies) and loaded onto the card against a fresh state: every leaf on
+    the card, with its dtype, bit for bit."""
+    from vslam_tpu_torch.odometry.sequential import init_state
+    from vslam_tpu_torch.utils import checkpoint
+    from vslam_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    (_, i0, d0), = _small_stream(1)
+    cam = Camera.create(110.0, 110.0, 63.5, 47.5, device=device)
+
+    def state():
+        st = init_state(i0, d0, cam, _bf16_cfg())
+        return st._replace(kf_data=tree_map(lambda x: x.to(torch.bfloat16) if x.is_floating_point() else x,
+                                            st.kf_data))
+
+    saved = state()
+    saved = saved._replace(speed=saved.speed + 0.25)
+    path = str(tmp_path / "state.npz")
+    checkpoint.save_sequential(path, saved, 99)
+    back, t_last = checkpoint.load_sequential(path, state())
+    assert t_last == 99
+    got, want = tree_leaves(back), tree_leaves(saved)
+    assert any(x.dtype == torch.bfloat16 for x in got)
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
+        bits = (lambda x: x.view(torch.int16)) if a.dtype == torch.bfloat16 else (lambda x: x)
+        assert torch.equal(bits(a), bits(b))
+
+
+def test_resumed_scan_on_the_card_equals_the_uninterrupted(device, tmp_path):
+    """8 frames, a checkpoint, a fresh SequentialOdometry and state, 4 more: the poses
+    equal the uninterrupted run's bit for bit (the step does not depend on
+    where a chunk starts)."""
+    from vslam_tpu_torch.odometry.sequential import SequentialOdometry, init_state
+    from vslam_tpu_torch.utils import checkpoint
+
+    items = _small_stream(12)
+    cam = Camera.create(110.0, 110.0, 63.5, 47.5, device=device)
+    full = SequentialOdometry(cam, _bf16_cfg(), chunk=4).run(iter(items))
+    odo = SequentialOdometry(cam, _bf16_cfg(), chunk=4)
+    first = odo.run(iter(items[:8]))
+    path = str(tmp_path / "state.npz")
+    checkpoint.save_sequential(path, odo.state, odo._t_last_ns)
+    odo2 = SequentialOdometry(cam, _bf16_cfg(), chunk=4)
+    odo2.state, odo2._t_last_ns = checkpoint.load_sequential(path, init_state(*items[0][1:], cam, _bf16_cfg()))
+    resumed = first + odo2.run(iter(items[8:]))
+    assert [t for t, _, _ in resumed] == [t for t, _, _ in full]
+    for (_, Ta, _), (_, Tb, _) in zip(resumed, full):
+        np.testing.assert_array_equal(Ta, Tb)
+
+
+def test_viewer_adds_no_wait_for_the_card(device):
+    """SequentialOdometry with a viewer waits for the card as often as
+    without one (torch's sync debug mode counts the waits), and launches
+    as many whole-level solves: it publishes from the chunk's one fetch."""
+    import warnings
+
+    from vslam_tpu_torch.odometry.sequential import SequentialOdometry
+    from vslam_tpu_torch.viz import LiveViz
+
+    items = _small_stream(9)
+    cam = Camera.create(110.0, 110.0, 63.5, 47.5, device=device)
+    SequentialOdometry(cam, _bf16_cfg(), chunk=4).run(iter(items))  # the first run's one-time waits
+    counts = []
+    for with_viz in (False, True):
+        viz = LiveViz(port=0) if with_viz else None
+        try:
+            odo = SequentialOdometry(cam, _bf16_cfg(), chunk=4, viz=viz)
+            before = fused_solve.LAUNCHES
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    odo.run(iter(items))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            counts.append((sum("synchronizing" in str(w.message) for w in caught), fused_solve.LAUNCHES - before))
+            if viz is not None:
+                assert viz.state()["n_frames"] == 9
+        finally:
+            if viz is not None:
+                viz.close()
+    assert counts[0] == counts[1], counts
+
+
+def test_device_memory_stats_on_the_card(device):
+    from vslam_tpu_torch.utils.profiling import device_memory_stats
+
+    x = torch.ones(1 << 20, device=device)
+    stats = device_memory_stats()
+    assert stats == device_memory_stats(device)
+    assert {"bytes_in_use", "peak_bytes_in_use", "bytes_limit", "bytes_reserved", "num_allocs"} <= set(stats)
+    assert all(isinstance(v, int) for v in stats.values())
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"] >= x.numel() * 4 > 0
+    assert stats["bytes_limit"] >= stats["bytes_reserved"] >= stats["bytes_in_use"]

@@ -24,9 +24,9 @@ JAX package's on the same files.
   the JAX summary's keys, frame counts and per-sequence entries and files,
   each per-sequence trajectory within 1e-3 of JAX's per pose, and the
   `_suite.meta.json` beside them. KITTI roots with different baselines exit 2.
-* Each option that waits for an unported module raises NotImplementedError
-  naming it (--live-viz). `--mapping` is held against the JAX CLI in
-  `tests/test_torch_mapping_entry.py`.
+* `--mapping` is held against the JAX CLI in
+  `tests/test_torch_mapping_entry.py`, `--live-viz` in
+  `tests/test_torch_guards.py::test_viewer_options_are_ported`.
 """
 
 import contextlib
@@ -196,19 +196,6 @@ def test_reproduce_exit_codes(mini_dataset, tmp_path, capsys):
     base[2] = str(broken)
     assert port_main(base) == 2
     capsys.readouterr()
-
-
-@pytest.mark.parametrize(
-    "argv,module",
-    [
-        (["odometry", "--dataset", "d", "--live-viz", "0"], "viz/live.py"),
-        (["synthetic", "--live-viz", "0"], "viz/live.py"),
-    ],
-    ids=["live-viz", "synthetic-live-viz"],
-)
-def test_unported_options_raise_naming_their_module(argv, module):
-    with pytest.raises(NotImplementedError, match=re.escape(module)):
-        port_main([*argv, "--device", "cpu"])
 
 
 def _assert_trajectory_files_close(port_path, jax_path, n):

@@ -61,8 +61,9 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    # the slices' modules, KITTI's, the suite's, the aligners' and the mapping backend's among them
-    assert int(out.stdout.split()[-1]) >= 64
+    # the slices' modules, KITTI's, the suite's, the aligners', the mapping
+    # backend's, the viewer's, the checkpoint's and the EXR and fixture readers among them
+    assert int(out.stdout.split()[-1]) >= 69
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -249,14 +250,13 @@ def test_entry_points_default_to_the_card(make):
 @pytest.mark.parametrize(
     "kwargs,cfg,what",
     [
-        pytest.param({"viz": object()}, SequentialConfig(), "live viewer", id="kwargs1-cfg1-live viewer"),
         pytest.param({"mesh": object()}, SequentialConfig(), "torch.distributed",
                      id="kwargs3-cfg3-torch.distributed"),
     ],
 )
 def test_unported_sequential_options_raise(kwargs, cfg, what):
-    """`SequentialOdometry` (viz) and `MultiSequenceOdometry` (mesh) refuse
-    what waits for an unported module, naming it."""
+    """`MultiSequenceOdometry` (mesh) refuses what waits for an unported
+    module, naming it."""
     cam = Camera.create(100.0, 100.0, 31.5, 23.5, device="cpu")
     with pytest.raises(NotImplementedError, match=re.escape(what)):
         if {"mappings", "mesh"} & set(kwargs):
@@ -268,14 +268,6 @@ def test_unported_sequential_options_raise(kwargs, cfg, what):
 def test_sharded_scan_sequences_names_torch_distributed():
     with pytest.raises(NotImplementedError, match="torch.distributed"):
         sharded_scan_sequences(object(), SequentialConfig())
-
-
-@pytest.mark.parametrize("cfg,module", [(PipelineConfig(live_viz_port=0), "viz/live.py")], ids=["live_viz_port"])
-def test_unported_pipeline_options_raise(cfg, module):
-    """The pipeline refuses at construction what waits for an unported
-    module, and names that module."""
-    with pytest.raises(NotImplementedError, match=module):
-        OdometryPipeline(Camera(100.0, 100.0, 31.5, 23.5), cfg, device="cpu")
 
 
 @pytest.mark.parametrize("make", [
@@ -297,6 +289,91 @@ def test_mapping_options_are_ported(make):
         assert len(obj.mappings) == 2
     else:
         assert obj._tracking is not None
+
+
+class _Viewers:
+    """Records every `LiveViz` an entry point builds (the CLI and the
+    pipeline import it from `vslam_tpu_torch.viz` when they need one)."""
+
+    def __init__(self, monkeypatch):
+        import vslam_tpu_torch.viz as viz_pkg
+
+        self.made = []
+        made = self.made
+
+        class Recording(viz_pkg.LiveViz):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        monkeypatch.setattr(viz_pkg, "LiveViz", Recording)
+        self.cls = Recording
+
+    def close(self):
+        for v in self.made:
+            v.close()
+
+
+def _mini_tum(root, seed):
+    """A TUM directory of 4 PNG frames at 96x128 (`test_torch_evaluate`'s)."""
+    from test_torch_evaluate import _build_mini_tum
+
+    root.mkdir()
+    return _build_mini_tum(root, 4, seed=seed)
+
+
+def _viewer_sequential(cam, viewers, tmp_path, caplog):
+    odo = SequentialOdometry(cam, SequentialConfig(), viz=viewers.cls(port=0))
+    return odo.viz is viewers.made[0] and viewers.made[0].port > 0
+
+
+def _viewer_pipeline(cam, viewers, tmp_path, caplog):
+    pipe = OdometryPipeline(cam, PipelineConfig(live_viz_port=0), device="cpu")
+    return pipe.viz is viewers.made[0] and viewers.made[0].port > 0
+
+
+def _viewer_cli_odometry(cam, viewers, tmp_path, caplog):
+    from test_torch_evaluate import INTRINSICS
+
+    root = _mini_tum(tmp_path / "tum", seed=3)
+    rc = evaluate.main(["odometry", "--dataset", str(root), "--out", str(tmp_path / "t.txt"), "--intrinsics",
+                        INTRINSICS, "--live-viz", "0", "--device", "cpu", "--no-eval"])
+    return rc == 0 and [v.state()["n_frames"] for v in viewers.made] == [4]
+
+
+def _viewer_cli_synthetic(cam, viewers, tmp_path, caplog):
+    rc = evaluate.main(["synthetic", "--frames", "5", "--fused", "--live-viz", "0", "--device", "cpu"])
+    return rc == 0 and [v.state()["n_frames"] for v in viewers.made] == [5]
+
+
+def _viewer_cli_suite(cam, viewers, tmp_path, caplog):
+    import logging
+
+    from test_torch_evaluate import INTRINSICS
+
+    roots = [_mini_tum(tmp_path / name, seed=i) for i, name in enumerate(("a", "b"))]
+    with caplog.at_level(logging.WARNING, logger="vslam_tpu_torch.system"):
+        rc = evaluate.main(["odometry", "--dataset", str(roots[0]), "--dataset", str(roots[1]), "--out",
+                            str(tmp_path / "s.txt"), "--intrinsics", INTRINSICS, "--fused", "--parity",
+                            "--chunk", "4", "--live-viz", "0", "--device", "cpu", "--no-eval"])
+    warned = any("--live-viz is not supported with multiple --dataset values" in r.getMessage()
+                 for r in caplog.records)
+    return rc == 0 and warned and not viewers.made
+
+
+@pytest.mark.parametrize("check", [_viewer_sequential, _viewer_pipeline, _viewer_cli_odometry, _viewer_cli_synthetic,
+                                   _viewer_cli_suite],
+                         ids=["SequentialOdometry-viz", "OdometryPipeline-live_viz_port", "cli-odometry-host-loop",
+                              "cli-synthetic-fused", "cli-suite-warns"])
+def test_viewer_options_are_ported(check, monkeypatch, tmp_path, caplog):
+    """The viewer options no longer raise: the entry points build or take a
+    viewer and feed it every frame; suite mode warns and ignores the flag,
+    as the JAX CLI does."""
+    viewers = _Viewers(monkeypatch)
+    try:
+        assert check(Camera.create(100.0, 100.0, 31.5, 23.5, device="cpu"), viewers, tmp_path, caplog)
+    finally:
+        viewers.close()
 
 
 def test_mapping_options_checked():

@@ -19,7 +19,9 @@ RgbdAlignerFa`, `alignment.icp.IcpAligner`), the mapping backend
 (`odometry.sequential_mapping.ChunkMappingBackend`: features on the card,
 matching, BA and the pose graph on the CPU beside the scan by default),
 `io.synthetic.render_boxes_batch` and the evaluation CLI,
-`python -m vslam_tpu_torch.eval.evaluate` (``--device``).
+`python -m vslam_tpu_torch.eval.evaluate` (``--device``). The live viewer
+(`viz.LiveViz`) and checkpoint / resume (`utils.checkpoint`) hang off the
+scan, the pipeline and the CLI.
 """
 
 __version__ = "0.1.0"

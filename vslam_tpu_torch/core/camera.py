@@ -16,7 +16,7 @@ import torch
 
 from .device import resolve
 
-__all__ = ["Camera", "project", "backproject", "scale", "expand"]
+__all__ = ["Camera", "project", "backproject", "ray", "scale", "intrinsic_matrix", "expand"]
 
 
 class Camera(NamedTuple):
@@ -58,7 +58,24 @@ def backproject(cam: Camera, uv: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z], dim=-1)
 
 
+def ray(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
+    """Unit-depth ray through pixel uv (reference image2ray)."""
+    x = (uv[..., 0] - cam.cx) / cam.fx
+    y = (uv[..., 1] - cam.cy) / cam.fy
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
 def scale(cam: Camera, s: float) -> Camera:
     """Rescale intrinsics for a resized image (reference `Camera.cpp:34-38`:
     fx, fy, cx, cy times s, no half-pixel correction)."""
     return Camera(cam.fx * s, cam.fy * s, cam.cx * s, cam.cy * s)
+
+
+def intrinsic_matrix(cam: Camera) -> torch.Tensor:
+    """K (..., 3, 3) from leaves of any batch shape."""
+    fx = torch.as_tensor(cam.fx)
+    zero, one = torch.zeros_like(fx), torch.ones_like(fx)
+    rows = [torch.stack([fx, zero, torch.as_tensor(cam.cx)], dim=-1),
+            torch.stack([zero, torch.as_tensor(cam.fy), torch.as_tensor(cam.cy)], dim=-1),
+            torch.stack([zero, zero, one], dim=-1)]
+    return torch.stack(rows, dim=-2)

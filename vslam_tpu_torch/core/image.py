@@ -1,10 +1,13 @@
 """Dense image operations on torch tensors.
 
-Port of the frame-pipeline half of `vslam_tpu.core.image`: sampling,
-cv::pyrDown, the 3x3 Gaussian blur and Sobel derivatives, and the masked 3x3
-median on depth. Every function takes images of shape (..., H, W) and maps
-over the leading axes. The stencils are shifted-slice adds, as in the JAX
-version, never `conv2d`: cuDNN (and its TF32 default) never sees them.
+Port of `vslam_tpu.core.image`: sampling, cv::pyrDown, the 3x3 Gaussian
+blur, Sobel and Scharr derivatives, the masked 3x3 median on depth, and the
+reference's own conv2d, gradients and resize (`algorithm.{h,cpp}`). Every
+function takes images of shape (..., H, W) and maps over the leading axes,
+on the image's device. The stencils are shifted-slice adds, as in the JAX
+version, never `conv2d`: cuDNN (and its TF32 default) never sees them; the
+JAX function's `lax.conv` of a general kernel becomes one shifted-slice
+multiply-add a tap here, so its sums run in another order.
 """
 
 from __future__ import annotations
@@ -14,10 +17,17 @@ import torch
 __all__ = [
     "bilinear_sample",
     "nearest_sample",
+    "conv2d_reflect",
+    "conv2d_norm_interior",
     "gaussian_blur_3x3",
     "sobel_x",
     "sobel_y",
+    "scharr_x",
+    "scharr_y",
+    "grad_x",
+    "grad_y",
     "pyr_down",
+    "resize_bilinear",
     "median_blur_3x3_masked",
     "masked_median",
 ]
@@ -74,6 +84,8 @@ def nearest_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch
 _GAUSS3 = (0.25, 0.5, 0.25)
 _SOBEL_D = (-1.0, 0.0, 1.0)
 _SOBEL_S = (1.0, 2.0, 1.0)
+_SCHARR_D = (-1.0, 0.0, 1.0)
+_SCHARR_S = (3.0, 10.0, 3.0)
 _PYR5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
 
@@ -126,6 +138,59 @@ def sobel_y(img: torch.Tensor) -> torch.Tensor:
     return _sep_conv_reflect(img, _SOBEL_D, _SOBEL_S)
 
 
+def scharr_x(img: torch.Tensor) -> torch.Tensor:
+    return _sep_conv_reflect(img, _SCHARR_S, _SCHARR_D)
+
+
+def scharr_y(img: torch.Tensor) -> torch.Tensor:
+    return _sep_conv_reflect(img, _SCHARR_D, _SCHARR_S)
+
+
+def _conv2d_valid(img: torch.Tensor, kernel) -> torch.Tensor:
+    """2-D valid correlation with a (kh, kw) kernel, in f32 and cast back to
+    the image's dtype (as the JAX function's `lax.conv`), one shifted-slice
+    multiply-add a tap in row-major order."""
+    k = torch.as_tensor(kernel, dtype=torch.float32, device=img.device)
+    kh, kw = k.shape
+    H, W = img.shape[-2:]
+    x = img.to(torch.float32)
+    out = None
+    for i in range(kh):
+        for j in range(kw):
+            term = x[..., i : i + H - kh + 1, j : j + W - kw + 1] * k[i, j]
+            out = term if out is None else out + term
+    return out.to(img.dtype)
+
+
+def conv2d_reflect(img: torch.Tensor, kernel) -> torch.Tensor:
+    """Correlate with reflect-101 border (OpenCV BORDER_DEFAULT)."""
+    kh, kw = torch.as_tensor(kernel).shape
+    return _conv2d_valid(_pad_reflect(_pad_reflect(img, kh // 2, -2), kw // 2, -1), kernel)
+
+
+def conv2d_norm_interior(img: torch.Tensor, kernel) -> torch.Tensor:
+    """Reference `algorithm.cpp:122-149` conv2d: interior pixels only (the
+    border stays 0), the response normalized by sum(|kernel|)."""
+    k = torch.as_tensor(kernel, device=img.device)
+    kh, kw = k.shape
+    interior = _conv2d_valid(img, k) / k.abs().sum().to(img.dtype)
+    return torch.nn.functional.pad(interior, (kw // 2, kw // 2, kh // 2, kh // 2))
+
+
+_SCHARR_X = ((-3.0, 0.0, 3.0), (-10.0, 0.0, 10.0), (-3.0, 0.0, 3.0))
+_SCHARR_Y = ((-3.0, -10.0, -3.0), (0.0, 0.0, 0.0), (3.0, 10.0, 3.0))
+
+
+def grad_x(img: torch.Tensor) -> torch.Tensor:
+    """Reference `algorithm.cpp:72-75` gradX: the Scharr response normalized
+    by sum(|kernel|) = 32, border zero, truncated toward zero (cast<int>)."""
+    return torch.trunc(conv2d_norm_interior(img, torch.tensor(_SCHARR_X, dtype=img.dtype)))
+
+
+def grad_y(img: torch.Tensor) -> torch.Tensor:
+    return torch.trunc(conv2d_norm_interior(img, torch.tensor(_SCHARR_Y, dtype=img.dtype)))
+
+
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
     """cv::pyrDown: 5-tap Gaussian [1,4,6,4,1]/16 (separable, reflect-101),
     then decimation by 2; output ceil(n/2) per axis. The vertical pass runs
@@ -133,6 +198,24 @@ def pyr_down(img: torch.Tensor) -> torch.Tensor:
     padded = _pad_reflect(_pad_reflect(img, 2, -2), 2, -1)
     rows = _sep_pass(padded, _PYR5, -2)[..., ::2, :]
     return _sep_pass(rows, _PYR5, -1)[..., ::2]
+
+
+def resize_bilinear(img: torch.Tensor, s: float) -> torch.Tensor:
+    """Reference `algorithm.h:83-101` resize: output (floor(H*s), floor(W*s)),
+    each output pixel sampled at (j/s, i/s), corner-aligned; an integer
+    stride 1/s is a strided slice."""
+    if s == 1.0:
+        return img
+    H, W = img.shape[-2:]
+    oh, ow = int(H * s), int(W * s)
+    inv = 1.0 / s
+    if inv == int(inv):
+        k = int(inv)
+        return img[..., : k * oh : k, : k * ow : k]
+    lead = img.shape[:-2]
+    ys = (torch.arange(oh, dtype=torch.float32, device=img.device) * inv)[:, None].expand(*lead, oh, ow)
+    xs = (torch.arange(ow, dtype=torch.float32, device=img.device) * inv)[None, :].expand(*lead, oh, ow)
+    return bilinear_sample(img, xs, ys)
 
 
 # ---------------------------------------------------------------------------

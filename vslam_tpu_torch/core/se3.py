@@ -20,10 +20,15 @@ from .device import resolve
 __all__ = [
     "SE3",
     "identity",
+    "from_matrix",
+    "to_matrix",
     "compose",
     "inverse",
     "transform_points",
+    "relative",
     "so3_hat",
+    "so3_vee",
+    "so3_exp",
     "so3_log",
     "exp",
     "log",
@@ -47,6 +52,19 @@ def identity(batch_shape=(), dtype=torch.float32, device=None) -> SE3:
     return SE3(R, t)
 
 
+def from_matrix(T: torch.Tensor) -> SE3:
+    """Build from a (..., 4, 4) homogeneous matrix."""
+    return SE3(T[..., :3, :3], T[..., :3, 3])
+
+
+def to_matrix(g: SE3) -> torch.Tensor:
+    T = torch.zeros(*g.t.shape[:-1], 4, 4, dtype=g.R.dtype, device=g.R.device)
+    T[..., :3, :3] = g.R
+    T[..., :3, 3] = g.t
+    T[..., 3, 3] = 1.0
+    return T
+
+
 def compose(a: SE3, b: SE3) -> SE3:
     """a . b — apply b first, then a."""
     R = a.R @ b.R
@@ -65,6 +83,12 @@ def transform_points(g: SE3, p: torch.Tensor) -> torch.Tensor:
     return (g.R @ p.unsqueeze(-1)).squeeze(-1) + g.t
 
 
+def relative(ref: SE3, cur: SE3) -> SE3:
+    """T_cur_ref = cur . ref^-1 (reference `algorithm.cpp:82-85`
+    computeRelativeTransform)."""
+    return compose(cur, inverse(ref))
+
+
 def so3_hat(w: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric matrix of ``w: (..., 3)``."""
     wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
@@ -77,7 +101,7 @@ def so3_hat(w: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
-def _so3_vee(W: torch.Tensor) -> torch.Tensor:
+def so3_vee(W: torch.Tensor) -> torch.Tensor:
     return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
@@ -94,12 +118,20 @@ def _sinc_coeffs(theta2: torch.Tensor):
     return A, B, C
 
 
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues formula, Taylor-safe near zero."""
+    A, B, _ = _sinc_coeffs(torch.sum(w * w, dim=-1))
+    W = so3_hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + A[..., None, None] * W + B[..., None, None] * (W @ W)
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Log map of SO(3), robust near theta = 0 and theta = pi (the
     atan2 form of `vslam_tpu.core.se3.so3_log`)."""
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
-    vee = _so3_vee(R - R.transpose(-1, -2))  # = 2 sin(theta) * axis
+    vee = so3_vee(R - R.transpose(-1, -2))  # = 2 sin(theta) * axis
     sin2 = torch.sum(vee * vee, dim=-1) * 0.25
     sin_theta = torch.sqrt(torch.clamp(sin2, min=1e-30))
     theta = torch.atan2(sin_theta, cos_theta)

@@ -23,9 +23,10 @@ with the JAX CLI's subcommands, flags, JSON lines and exit codes, plus
              published fr2_desk budgets
 
 --mapping runs the SLAM backend (features, windowed BA) on the host loop,
-the sequential scan and in suite mode. --live-viz needs a module not ported
-yet and raises NotImplementedError naming it (viz/live.py), in suite mode
-too.
+the sequential scan and in suite mode. --live-viz PORT serves the live
+viewer (`viz.LiveViz`, GET /state.json and /): the host loop publishes per
+frame, the sequential scan per retired chunk; suite mode warns and ignores
+it, as the JAX CLI does.
 
 Provenance: like the reference's meta.yaml (script/evaluate.py:51-55), the
 odometry command records config + git sha next to the trajectory.
@@ -42,16 +43,6 @@ import sys
 import time
 
 
-def _unported(what: str, module: str):
-    return NotImplementedError(f"{what} is not ported yet: it comes with {module}")
-
-
-def _refuse_unported(args) -> None:
-    """Raise for the options whose modules the port does not have yet."""
-    if getattr(args, "live_viz", None) is not None:
-        raise _unported("--live-viz (the live viewer)", "viz/live.py")
-
-
 def _cmd_odometry(args) -> int:
     import numpy as np
 
@@ -61,13 +52,19 @@ def _cmd_odometry(args) -> int:
     from ..odometry.pipeline import OdometryPipeline
     from ..utils.log import configure, get_logger
 
-    _refuse_unported(args)
     configure(args.log_level)
     log = get_logger("system")
     cfg = load_yaml_config(args.config) if args.config else PipelineConfig()
     if args.mapping:
         cfg = dataclasses.replace(cfg, enable_mapping=True)
+    if args.live_viz is not None:
+        # the reference's RViz channel (NodeMapping.cpp:231-272); the host
+        # loop publishes per frame, the sequential scan per retired chunk
+        cfg = dataclasses.replace(cfg, live_viz_port=args.live_viz)
     if len(args.dataset) > 1:
+        if cfg.live_viz_port is not None:
+            log.warning("--live-viz is not supported with multiple --dataset values (the batched "
+                        "multi-sequence scan has no per-frame host loop to publish from); ignoring it")
         return _cmd_odometry_multi(args, cfg, log)
     args.dataset = args.dataset[0]
     if args.format == "kitti":
@@ -97,7 +94,9 @@ def _cmd_odometry(args) -> int:
             # native u8/u16 transport: the device converts (depth_scale);
             # the host->device link moves the sensor's own bit depth
             stream, seq_cfg = ds.iter_raw(), _seq_config(cfg, depth_scale=tum.DEPTH_SCALE)
-        odo = SequentialOdometry(camera, seq_cfg, chunk=args.chunk, mapping=_mapping_backend(cfg, args.device))
+        viz = _viewer(cfg.live_viz_port)
+        odo = SequentialOdometry(camera, seq_cfg, chunk=args.chunk, mapping=_mapping_backend(cfg, args.device),
+                                 viz=viz)
         t0 = time.perf_counter()
         results = odo.run(stream)
         elapsed = time.perf_counter() - t0
@@ -108,6 +107,7 @@ def _cmd_odometry(args) -> int:
         from ..odometry.pipeline import device_prefetch
 
         pipeline = OdometryPipeline(camera, cfg, device=args.device)
+        viz = pipeline.viz
         # native u8/u16 transport (KITTI: f32 left image and stereo depth in
         # metres) + device prefetch: the transfer of frame i+1 overlaps the
         # solve of frame i
@@ -149,7 +149,18 @@ def _cmd_odometry(args) -> int:
 
         res = metrics.summarize(ds.groundtruth, est)
         print(json.dumps(res))
+    if viz is not None:
+        viz.close()
     return 0
+
+
+def _viewer(port):
+    """A `viz.LiveViz` on ``port`` (0: an ephemeral one), or None."""
+    if port is None:
+        return None
+    from ..viz import LiveViz
+
+    return LiveViz(port=port)
 
 
 def _mapping_backend(cfg, device):
@@ -413,7 +424,6 @@ def _cmd_synthetic(args) -> int:
     from ..odometry.pipeline import OdometryPipeline
     from . import metrics
 
-    _refuse_unported(args)
     H, W, FX = args.height, args.width, args.fx
     K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
     poses = synthetic.smooth_trajectory(args.frames, trans_amp=0.08, rot_amp=0.03)
@@ -426,6 +436,7 @@ def _cmd_synthetic(args) -> int:
         solver_max_iterations=50,
         solver_min_step_size=1e-7,
         enable_mapping=args.mapping,
+        live_viz_port=args.live_viz,
     )
     camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2, device=args.device)
     if args.realistic:
@@ -447,11 +458,13 @@ def _cmd_synthetic(args) -> int:
             from ..odometry.sequential_mapping import ChunkMappingBackend
 
             mapping = ChunkMappingBackend(enable_ba=True, device=args.device)
+        viz = _viewer(cfg.live_viz_port)
         odo = SequentialOdometry(
             camera,
             SequentialConfig(alignment=cfg.alignment_config(), n_levels=cfg.pyramid_levels),
             chunk=8,
             mapping=mapping,
+            viz=viz,
         )
         t0 = time.perf_counter()
         results = odo.run((i * dt_ns, f[0], f[1]) for i, f in enumerate(frames))
@@ -461,6 +474,7 @@ def _cmd_synthetic(args) -> int:
             n_landmarks = mapping.n_landmarks
     else:
         pipeline = OdometryPipeline(camera, cfg, device=args.device)
+        viz = pipeline.viz
         t0 = time.perf_counter()
         for i, (intensity, depth) in enumerate(frames):
             pipeline.process_frame(i * dt_ns, intensity, depth)
@@ -482,6 +496,14 @@ def _cmd_synthetic(args) -> int:
             }
         )
     )
+    if viz is not None:
+        if args.viz_hold > 0:
+            # keep the viewer inspectable after the replay finishes (a replay
+            # on a short synthetic stream outruns any human looking at the page)
+            print(f"live viewer holding at http://127.0.0.1:{viz.port}/ for {args.viz_hold:.0f}s",
+                  file=sys.stderr, flush=True)
+            time.sleep(args.viz_hold)
+        viz.close()
     return 0
 
 
@@ -619,7 +641,7 @@ def parser() -> argparse.ArgumentParser:
         default=None,
         metavar="PORT",
         help="serve the live trajectory viewer on PORT (0 = ephemeral); "
-        "the RViz channel without ROS (not ported yet: viz/live.py)",
+        "the RViz channel without ROS (see vslam_tpu_torch.viz)",
     )
     p.add_argument("--log-level", default="WARNING")
     p.add_argument(

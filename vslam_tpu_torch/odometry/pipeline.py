@@ -24,8 +24,10 @@ that queue the device work and never wait for it.
     pipeline = OdometryPipeline(Camera.create(fx, fy, cx, cy), PipelineConfig())  # on CUDA
     trajectory = pipeline.run(stream)  # (t_ns, intensity, depth) items
 
-The live viewer (`viz/live.py`) is not ported yet: its option raises
-NotImplementedError at construction.
+With ``live_viz_port`` set, a `viz.LiveViz` serves the trajectory: each
+frame's pose, covariance and twist as the host already holds them (the
+reference's /odom, /path and TF publish, NodeMapping.cpp:231-272), keyframe
+markers, and the map's landmarks on keyframes with mapping on.
 """
 
 from __future__ import annotations
@@ -109,8 +111,6 @@ class OdometryPipeline:
     intrinsics are moved there."""
 
     def __init__(self, camera: Camera, cfg: PipelineConfig = PipelineConfig(), device=None):
-        if cfg.live_viz_port is not None:
-            raise NotImplementedError("the live viewer is not ported yet: it comes with viz/live.py")
         self.cfg = cfg
         self.device = resolve(device)
         self.camera = Camera(*(torch.as_tensor(c, dtype=torch.float32, device=self.device) for c in camera))
@@ -157,6 +157,10 @@ class OdometryPipeline:
             from .graph_backend import PoseGraphBackend
 
             self._graph = PoseGraphBackend(device=self.device)
+        if cfg.live_viz_port is not None:
+            from ..viz import LiveViz
+
+            self.viz = LiveViz(port=cfg.live_viz_port)
 
     def process_frame(self, t_ns: int, intensity, depth) -> Tuple[np.ndarray, np.ndarray]:
         """One frame of the strict loop: (H, W) images in a sensor dtype
@@ -196,9 +200,23 @@ class OdometryPipeline:
         if is_kf and self._tracking is not None:
             self._keyframe_backend(frame, t_ns)
         self.trajectory.append(t_ns, frame.pose, frame.cov)
+        if self.viz is not None:
+            self._publish_viz(t_ns, frame, is_kf)
         timer.record("pipeline.frame_total", time.perf_counter() - t0)
         self._log.debug("frame t=%d kf=%s dt=%.1fms", t_ns, is_kf, 1e3 * (time.perf_counter() - t0))
         return frame.pose, frame.cov
+
+    def _publish_viz(self, t_ns: int, frame: HostFrame, is_kf: bool) -> None:
+        """Feed the live viewer: the frame's odometry (pose, covariance and
+        the prediction's host-cached twist; NodeMapping.cpp:255-271), a
+        keyframe marker, and on keyframes with mapping on the map's cloud."""
+        self.viz.publish_odometry(t_ns, frame.pose, cov=frame.cov, twist=self.prediction.speed_host())
+        if is_kf:
+            self.viz.publish_keyframe(t_ns, frame.pose)
+            if self.cfg.enable_mapping:
+                pts = self.map.points()
+                if pts:
+                    self.viz.publish_landmarks(np.stack([p.position for p in pts]))
 
     def _keyframe_backend(self, frame: HostFrame, t_ns: int) -> None:
         """Track the keyframe, run the windowed BA and try a loop closure,
@@ -333,6 +351,8 @@ class OdometryPipeline:
         self.prediction.update(hf.pose, hf.t_ns, cov=hf.cov)
         self.map.insert(hf, is_kf)
         self.trajectory.append(hf.t_ns, hf.pose, hf.cov)
+        if self.viz is not None:
+            self._publish_viz(hf.t_ns, hf, is_kf)
         self._prev_retired = hf
 
 

@@ -28,8 +28,11 @@ to it.
     trajectory = odo.run(stream)  # [(t_ns, world->cam 4x4 f64, cov 6x6), ...]
 
 With ``mapping=`` a `sequential_mapping.ChunkMappingBackend` runs full SLAM
-between chunks (the JAX package's `sequential.py:344-694`). The live viewer
-is not ported yet and raises NotImplementedError.
+between chunks (the JAX package's `sequential.py:344-694`). With ``viz=`` a
+`viz.LiveViz` gets each retired chunk's poses, covariances and keyframes
+from the host arrays of the chunk's one fetch, and the backend map's
+landmarks as the thread that writes the map reads them; it adds no wait
+for the device and no launch.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from ..core.se3 import SE3
 from ..kalman import ekf_se3
 from ..utils import timer
 from ..utils.log import get_logger
+from ..utils.profiling import annotate
 from ..utils.tree import tree_map
 
 __all__ = [
@@ -321,12 +325,14 @@ class SequentialOdometry:
     repeat exactly; the worker re-bases each chunk's poses by the
     corrections it has returned (`_worker_job`). Without it, each
     correction folds before the next chunk is dispatched (the reference's
-    cadence)."""
+    cadence).
+
+    ``viz``: a `viz.LiveViz` fed each retired chunk (the seed frame as the
+    first keyframe), and the map's landmarks after each backend job."""
 
     def __init__(self, camera: Camera, cfg: SequentialConfig = SequentialConfig(), chunk: int = 16,
                  mapping=None, async_mapping: bool = True, backend_depth: int = 2, viz=None):
-        if viz is not None:
-            raise NotImplementedError("the live viewer is not ported yet: it comes with viz/live.py")
+        self.viz = viz
         self.device = camera.fx.device
         self.camera = _device_camera(camera, self.device)
         self.cfg = cfg
@@ -364,6 +370,9 @@ class SequentialOdometry:
         out.append((int(t_ns), np.eye(4), np.eye(6)))
         self.valid.append(True)
         self.is_kf.append(True)
+        if self.viz is not None:  # the seed frame is the first keyframe
+            self.viz.publish_odometry(int(t_ns), np.eye(4), cov=np.eye(6))
+            self.viz.publish_keyframe(int(t_ns), np.eye(4))
         if self.mapping is not None:
             # the first frame is the backend's first keyframe
             with timer.scope("seq.first_frame_backend"):
@@ -478,6 +487,12 @@ class SequentialOdometry:
         to the mapping backend."""
         sc, poses, valid, cov, is_kf, C_dispatch, detect = rec
         results, kf_flags = self._collect(sc.stamps, poses, valid, cov, is_kf, out)
+        if self.viz is not None:
+            with annotate("viz.publish"):
+                for (t, T, c), kf in zip(results, kf_flags):
+                    self.viz.publish_odometry(t, T, cov=c)
+                    if kf:
+                        self.viz.publish_keyframe(t, T)
         if self.mapping is None:
             return
         images = (sc.intensity, sc.depth)
@@ -504,15 +519,32 @@ class SequentialOdometry:
                 self._drain_oldest()
         else:
             delta = self.mapping.process_chunk(*args, **kwargs)
+            self._publish_landmarks(self._landmark_positions())
             if delta is not None:
                 self._apply_correction(delta)
+
+    def _landmark_positions(self) -> Optional[np.ndarray]:
+        """The backend map's landmark positions (N, 3) for the viewer, or
+        None (no viewer, or no landmark yet). Called by the thread that
+        writes the map, between its writes."""
+        if self.viz is None:
+            return None
+        pts = [p.position for p in self.mapping.map.points()]
+        return np.stack(pts) if pts else None
+
+    def _publish_landmarks(self, positions: Optional[np.ndarray]) -> None:
+        if positions is not None:
+            with annotate("viz.publish"):
+                self.viz.publish_landmarks(positions)
 
     def _worker_job(self, args, kwargs, C_dispatch):
         """A backend job on the worker thread (jobs run in chunk order).
         Corrections of earlier jobs may not have reached the device chain
         yet; the chunk's poses carried C_dispatch, the worker's belief is
         C_worker, so they are re-based by inv(C_dispatch) . C_worker and BA
-        never measures drift that is still on its way."""
+        never measures drift that is still on its way. Returns the
+        correction and, for the viewer, the map's landmark positions as the
+        job left them."""
         buf, est_poses, covs, kf_flags, camera, cfg = args
         rebase = np.linalg.inv(C_dispatch) @ self._C_worker
         if not np.allclose(rebase, np.eye(4), atol=1e-12):
@@ -520,14 +552,16 @@ class SequentialOdometry:
         delta = self.mapping.process_chunk(buf, est_poses, covs, kf_flags, camera, cfg, **kwargs)
         if delta is not None:
             self._C_worker = self._C_worker @ np.asarray(delta, np.float64)
-        return delta
+        return delta, self._landmark_positions()
 
     def _drain_oldest(self) -> None:
         """Wait for the oldest backend job and fold its correction into the
-        device chain (in chunk order, each once)."""
+        device chain (in chunk order, each once); the viewer gets the map's
+        landmarks as that job left them."""
         fut = self._backend_futures.pop(0)
         with timer.scope("seq.drain_backend"):
-            delta = fut.result()
+            delta, landmarks = fut.result()
+        self._publish_landmarks(landmarks)
         if delta is not None:
             self._apply_correction(delta)
 

@@ -1,7 +1,7 @@
 """Nonlinear least-squares engine (port of `vslam_tpu.solvers`)."""
 
 from . import gauss_newton, linalg6, loss, normal_equations
-from .gauss_newton import SolverConfig, SolverResult, solve_gauss_newton
+from .gauss_newton import SolverConfig, SolverResult, solve_gauss_newton, solve_levenberg_marquardt
 from .loss import LossConfig
 from .normal_equations import NormalEquations
 
@@ -13,6 +13,7 @@ __all__ = [
     "SolverConfig",
     "SolverResult",
     "solve_gauss_newton",
+    "solve_levenberg_marquardt",
     "LossConfig",
     "NormalEquations",
 ]

@@ -1,6 +1,6 @@
-"""Gauss-Newton over a batch of independent problems.
+"""Gauss-Newton and Levenberg-Marquardt over a batch of independent problems.
 
-Port of `vslam_tpu.solvers.gauss_newton.solve_gauss_newton`, itself the
+Port of `vslam_tpu.solvers.gauss_newton`. `solve_gauss_newton` keeps the
 guard/rollback semantics of reference `GaussNewton.cpp:33-102`:
 
   * stop if nConstraints < nParameters
@@ -14,7 +14,10 @@ guard/rollback semantics of reference `GaussNewton.cpp:33-102`:
 The JAX version runs one problem per `lax.while_loop` under `vmap`. Here the
 leading axis B of every tensor is the batch, and a per-problem ``done``
 mask freezes each problem at its own exit, which is what `vmap` of the
-while loop does. The loop itself runs until every problem is done.
+while loop does. The loop itself runs until every problem is done: the
+host reads one flag an iteration. `solve_levenberg_marquardt` (an
+extension of the JAX package's; the reference ships GN only) is built the
+same way.
 """
 
 from __future__ import annotations
@@ -25,10 +28,10 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..utils.tree import tree_map
-from .linalg6 import cholesky_logdet_solve
+from .linalg6 import cholesky_logdet_solve, cholesky_solve
 from .normal_equations import NormalEquations
 
-__all__ = ["SolverConfig", "SolverResult", "solve_gauss_newton"]
+__all__ = ["SolverConfig", "SolverResult", "solve_gauss_newton", "solve_levenberg_marquardt"]
 
 _LOG_MIN_DET = torch.log(torch.tensor(1e-6, dtype=torch.float32)).item()
 
@@ -161,4 +164,67 @@ def solve_gauss_newton(
         chi2_history=chi2_hist,
         step_history=step_hist,
         x_history=x_hist,
+    )
+
+
+def solve_levenberg_marquardt(
+    compute_ne: Callable[[Any], NormalEquations],
+    update_x: Callable[[Any, torch.Tensor], Any],
+    x0: Any,
+    n_params: int,
+    config: SolverConfig = SolverConfig(),
+    lambda0: float = 1e-3,
+    lambda_up: float = 10.0,
+    lambda_down: float = 0.1,
+    max_lambda: float = 1e6,
+) -> SolverResult:
+    """Batched Levenberg-Marquardt with multiplicative damping on diag(A),
+    the JAX function's schedule: each iteration solves (A + lam diag A) dx
+    = b at the carried NE and evaluates the trial point once; it is taken
+    when its chi2 is lower, finite and the problem has enough constraints,
+    and lam falls by ``lambda_down`` (>= 1e-12), else rises by ``lambda_up``
+    (<= ``max_lambda``). A problem stops on too few constraints, an
+    accepted step below ``min_step_size``, or a rejected trial at
+    ``max_lambda``. Returns the NE at the final x; ``iterations`` counts the
+    accepted steps and the histories hold every trial's chi2 and step."""
+    ne = compute_ne(x0)
+    B, dtype, device = ne.A.shape[0], ne.A.dtype, ne.A.device
+    x = x0
+    lam = torch.full((B,), lambda0, dtype=dtype, device=device)
+    pushed = torch.zeros(B, dtype=torch.int32, device=device)
+    done = torch.zeros(B, dtype=torch.bool, device=device)
+    chi2_hist = torch.full((B, config.max_iterations), float("nan"), dtype=dtype, device=device)
+    step_hist = torch.full_like(chi2_hist, float("nan"))
+    for i in range(config.max_iterations):
+        if i > 0 and bool(done.all()):
+            break
+        live = ~done
+        stop_constraints = ne.n < n_params
+        damped = ne.A + lam[:, None, None] * torch.diag_embed(torch.diagonal(ne.A, dim1=-2, dim2=-1))
+        dx = cholesky_solve(damped, ne.b)
+        x_new = update_x(x, dx)
+        ne_new = compute_ne(x_new)
+        step = torch.linalg.vector_norm(dx, dim=-1)
+        nan_step = ~torch.isfinite(step) | ~torch.isfinite(ne_new.chi2)
+        accept = (ne_new.chi2 < ne.chi2) & ~nan_step & ~stop_constraints
+        take = live & accept
+        x = _select(take, x_new, x)
+        ne = _select(take, ne_new, ne)
+        lam_next = torch.where(accept, torch.clamp(lam * lambda_down, min=1e-12),
+                               torch.clamp(lam * lambda_up, max=max_lambda))
+        stop = stop_constraints | (accept & (step < config.min_step_size)) | (~accept & (lam >= max_lambda))
+        lam = torch.where(live, lam_next, lam)
+        pushed = pushed + take.to(torch.int32)
+        chi2_hist[:, i] = torch.where(live, ne_new.chi2, chi2_hist[:, i])
+        step_hist[:, i] = torch.where(live, step, step_hist[:, i])
+        done = done | stop
+    return SolverResult(
+        x=x,
+        A=ne.A,
+        b=ne.b,
+        chi2=ne.chi2,
+        iterations=pushed,
+        valid=pushed > 0,
+        chi2_history=chi2_hist,
+        step_history=step_hist,
     )

@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["cholesky_solve", "cholesky_logdet_solve", "inv_psd", "inv3"]
+__all__ = ["cholesky_solve", "cholesky_det_solve", "cholesky_logdet_solve", "inv_psd", "inv3"]
 
 
 def _chol_factor(A: torch.Tensor):
@@ -59,6 +59,18 @@ def _substitute(L, b: torch.Tensor) -> torch.Tensor:
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
     return torch.stack(x, dim=-1)
+
+
+def cholesky_det_solve(A: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Solve A x = b for SPD A; return (x, det A), 0 for a degenerate factor.
+    det = prod(diag L)^2 overflows f32 for large Jacobians, where the
+    guards use `cholesky_logdet_solve`."""
+    L, bad = _chol_factor(A)
+    det_sqrt = L[0][0]
+    for j in range(1, len(L)):
+        det_sqrt = det_sqrt * L[j][j]
+    det = torch.where(bad, torch.zeros_like(det_sqrt), det_sqrt * det_sqrt)
+    return _substitute(L, b), det
 
 
 def cholesky_logdet_solve(A: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -18,7 +18,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-__all__ = ["get_logger", "LogImage", "log_img", "LogPlot", "log_plt", "configure"]
+__all__ = ["get_logger", "LogImage", "log_img", "registered_image_logs", "LogPlot", "log_plt",
+           "registered_plot_logs", "configure"]
 
 _LOGGERS: Dict[str, logging.Logger] = {}
 _IMAGE_LOGS: Dict[str, "LogImage"] = {}
@@ -75,6 +76,10 @@ def log_img(name: str) -> LogImage:
     return _IMAGE_LOGS[name]
 
 
+def registered_image_logs():
+    return sorted(_IMAGE_LOGS.keys())
+
+
 class LogPlot:
     """String-keyed plot log sink (reference LogPlot / LOG_PLT, Log.h:35-40,
     139-177). Payloads are dicts of named 1-D arrays (e.g. the Gauss-Newton
@@ -117,3 +122,7 @@ def log_plt(name: str) -> LogPlot:
     if name not in _PLOT_LOGS:
         _PLOT_LOGS[name] = LogPlot(name)
     return _PLOT_LOGS[name]
+
+
+def registered_plot_logs():
+    return sorted(_PLOT_LOGS.keys())
