@@ -155,13 +155,16 @@ Phases, each ending in torch.cuda.synchronize():
                 `fused_gn` (kernel 1b on the main path), BA + loop closure
                 with pose_write_back "off": the JAX gate (closures >= 1,
                 mapping-off ATE > 0.01 m, corrected < 0.6 x, online <= 1.02
-                x); kernel 1b at each level's inputs bit for bit
+                x); the worker's CUDA ops, counted in every 4th backend call
+                (WORKER_OPS_EVERY; those calls must make a closure), 0;
+                kernel 1b at each level's inputs bit for bit
  25. kitti_loop — 256 stereo pairs at 1241x376 of the street-scale loop
                 rendered on the card (`bench.py:1165-1300`), the KITTI
                 profile, BA + loop closure: the JAX gate (closures >= 1,
                 mapping-off ATE > 0.02 m, corrected < 0.6 x); the graph
                 solve's times and nodes, the stereo detection's peak memory;
-                kernel 1 at each level's inputs bit for bit
+                the worker's CUDA ops as in phase 24; kernel 1 at each
+                level's inputs bit for bit
  26. graph    — the 900-node five-loop chain of the JAX test, solved on
                 the card by PCG and by the dense 5400 x 5400 solve: gated in
                 f64 (initial chi2 within rtol 1e-5, PCG's final chi2 < 0.1 x
@@ -187,13 +190,33 @@ Phases, each ending in torch.cuda.synchronize():
                 with --live-viz 0 (the JAX CLI's warning, no viewer). (e)
                 trace() around one chunk: the "viz.publish" span in
                 trace.json; device_memory_stats() after (a)
+ 28. mesh     — (a) an NCCL group of one in this process on cuda:0:
+                `sharded_tracking_step` on phase 6's 64 pairs (3 robust
+                launches; ekf, rel and valid bit-equal to phase 6's, frac
+                the mean of valid), `MultiSequenceOdometry(mesh=
+                make_mesh())` on phase 21's streams, `run` and `run_staged`
+                (3 x 31 launches each, every pose bit-equal to phase 21's
+                run), `sharded_scan_sequences` on one chunk (bit-equal to
+                `scan_sequences`), kernels 1 and 1b at this phase's level-0
+                inputs bit for bit; pairs/s against phase 6's unsharded
+                call, the all_reduce's host us. (b) MESH_RANKS processes
+                sharing the card over gloo, loading phase 2's libraries:
+                `sharded_tracking_step` (32 pairs a rank, rendered by the
+                rank), `sharded_tracking_step_2d` on a (2, 1) mesh and
+                `MultiSequenceOdometry(mesh=)` (S = 4, 2 a rank, lazy
+                streams of which a rank renders its own), each rank's
+                launches counted, every pair and pose within 1e-3 of (a)'s,
+                frac equal; the largest difference and whether the results
+                are bit-equal; the aggregate rate (two ranks on one card
+                are not a scaling measurement)
 Every phase that runs a mapping backend (17, 18, 23-25, 27) fails on any
 warning of the "mapping" logger (its graceful degradation hides nothing).
-Phase 18's second half runs after phase 21, on its frames and phase 20's:
-`odometry --format kitti` on a KITTI root of 8 pairs (host loop, --fused,
---fused --mapping), and a repeated --dataset on two TUM directories (with
-and without --mapping) and on two KITTI roots, each exit 0 with the ATE
-printed, where the port can read PNG files.
+Phases 17-28 print their wall time. Phase 18's second half runs after
+phase 21, on its frames and phase 20's: `odometry --format kitti` on a
+KITTI root of 8 pairs (host loop, --fused, --fused --mapping), and a
+repeated --dataset on two TUM directories (with and without --mapping) and
+on two KITTI roots, each exit 0 with the ATE printed, where the port can
+read PNG files.
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for its work (`_bound`); the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script
@@ -259,10 +282,12 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def _render_pairs(device):
+def _render_pairs(device, pairs=None, names=("ref", "mid", "cur")):
     """The bench's pairs: default_scene(seed=b), motion from default_rng(0)
     (translation +-0.01, rotation +-0.005), plus each pair's half-way frame
-    for the stacked (F=2) case."""
+    for the stacked (F=2) case. ``pairs`` picks a block of the B pairs
+    (the same images as in the whole batch); rendered on RENDER_THREADS
+    host threads. Returns ({name: Frame}, xis of the block)."""
     import torch
 
     from vslam_tpu_torch.core import lie_np
@@ -270,23 +295,23 @@ def _render_pairs(device):
     from vslam_tpu_torch.core.frame import create_frame
     from vslam_tpu_torch.io import synthetic
 
+    pairs = range(B) if pairs is None else pairs
     K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
     cam = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2, device=device)
     rng = np.random.default_rng(0)
-    imgs = {"ref": [], "mid": [], "cur": []}
-    xis = []
-    for b in range(B):
-        scene = synthetic.default_scene(seed=b)
-        xi = np.concatenate([rng.uniform(-0.01, 0.01, 3), rng.uniform(-0.005, 0.005, 3)])
-        xis.append(xi)
-        for name, pose in (("ref", np.eye(4)), ("mid", lie_np.exp(0.5 * xi)), ("cur", lie_np.exp(xi))):
-            imgs[name].append(synthetic.render(K, pose, (H, W), scene))
+    xis = np.stack([np.concatenate([rng.uniform(-0.01, 0.01, 3), rng.uniform(-0.005, 0.005, 3)])
+                    for _ in range(B)])[pairs.start:pairs.stop]
+    pose = {"ref": lambda xi: np.eye(4), "mid": lambda xi: lie_np.exp(0.5 * xi), "cur": lie_np.exp}
+    imgs = _render_all([lambda b=b, name=name: synthetic.render(K, pose[name](xis[b - pairs.start]), (H, W),
+                                                                synthetic.default_scene(seed=b))
+                        for name in names for b in pairs])
     frames = {}
-    for name, lst in imgs.items():
+    for k, name in enumerate(names):
+        lst = imgs[k * len(pairs):(k + 1) * len(pairs)]
         inten = torch.as_tensor(np.stack([i for i, _ in lst]), device=device)
         depth = torch.as_tensor(np.stack([d for _, d in lst]), device=device)
         frames[name] = create_frame(inten, depth, cam, n_levels=N_LEVELS)
-    return frames, np.stack(xis)
+    return frames, xis
 
 
 def _production_cfg():
@@ -2077,23 +2102,32 @@ def _kitti(poses, stream, card, log):
     return launches[0], max_err
 
 
-def _suite_streams():
-    """(poses, S streams) of `bench.py:689-713`: `default_scene(seed=100+s)`
-    along `smooth_trajectory(32, 0.08, 0.03)` re-based on frame 0, uint8 /
-    uint16 at 1/5000 m."""
+def _suite_poses():
+    """`smooth_trajectory(32, 0.08, 0.03)` re-based on frame 0."""
     from vslam_tpu_torch.core import lie_np
     from vslam_tpu_torch.io import synthetic
 
-    K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
     poses = synthetic.smooth_trajectory(SUITE_FRAMES, trans_amp=0.08, rot_amp=0.03)
     p0i = lie_np.inv(poses[0])
-    poses = [p @ p0i for p in poses]
-    frames = _render_all([lambda s=s, p=p: synthetic.render(K, p, (H, W), synthetic.default_scene(seed=100 + s))
-                          for s in range(SUITE_S) for p in poses])
-    streams = [[(i * DT_NS, _u8(inten), np.clip(np.round(depth * 5000.0), 0, 65535).astype(np.uint16))
-                for i, (inten, depth) in enumerate(frames[s * SUITE_FRAMES:(s + 1) * SUITE_FRAMES])]
-               for s in range(SUITE_S)]
-    return poses, streams
+    return [p @ p0i for p in poses]
+
+
+def _suite_sequence(s, poses):
+    """Sequence s of the suite: `default_scene(seed=100+s)` along ``poses``,
+    uint8 / uint16 at 1/5000 m."""
+    from vslam_tpu_torch.io import synthetic
+
+    K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    frames = _render_all([lambda p=p: synthetic.render(K, p, (H, W), synthetic.default_scene(seed=100 + s))
+                          for p in poses])
+    return [(i * DT_NS, _u8(inten), np.clip(np.round(depth * 5000.0), 0, 65535).astype(np.uint16))
+            for i, (inten, depth) in enumerate(frames)]
+
+
+def _suite_streams():
+    """(poses, S streams) of `bench.py:689-713`."""
+    poses = _suite_poses()
+    return poses, [_suite_sequence(s, poses) for s in range(SUITE_S)]
 
 
 def _suite(poses, streams, card, log):
@@ -2106,7 +2140,7 @@ def _suite(poses, streams, card, log):
     the suite's level-0 inputs (B = 4) against its plain version, aggregate
     frames/s staged and streamed beside 4 x the single sequence's, and the
     ragged run (sequence 3 cut to 24 frames). Returns (launches, kernel 1's
-    difference from its plain version)."""
+    difference from its plain version, the counted `run`'s trajectories)."""
     from vslam_tpu_torch.alignment import fused_solve
     from vslam_tpu_torch.core import lie_np
     from vslam_tpu_torch.core.camera import Camera
@@ -2197,7 +2231,7 @@ def _suite(poses, streams, card, log):
         f"run: per-frame gap max {gap_r:.3e} (gate 1e-3)")
     if not gap_r < 1e-3:
         raise AssertionError(f"phase 21 ragged: gap {gap_r}")
-    return launches + launches_r, err
+    return launches + launches_r, err, res
 
 
 def _write_png(path, img):
@@ -2534,6 +2568,8 @@ SLAM_BA_POSE_TOL = 1e-4  # rotation entries and metres
 SLAM_POINT_TOL = 1e-3  # metres
 # phase 24: the drift orbit, `bench.py:919-1045` unchanged
 DRIFT_FRAMES = 256
+# phases 24, 25: the worker's CUDA ops are counted in every 4th backend call
+WORKER_OPS_EVERY = 4
 # phase 25: the KITTI loop, `bench.py:1165-1300` unchanged
 LOOP_FRAMES = 256
 LOOP_SCALE = 5.0
@@ -2582,10 +2618,15 @@ def _mapping_warnings(label):
 class _WorkerOps:
     """Counts, by thread, the ATen ops of a backend's process_chunk calls
     that touch a CUDA tensor and are not views (a view launches nothing),
-    through a dispatch mode entered on the calling thread."""
+    through a dispatch mode entered on the calling thread. With ``every``
+    > 1 only every ``every``-th call is counted (the first among them): the
+    mode slows the worker several times over, and the worker bounds the
+    loop phases. ``counted_closures`` is the loop closures that the counted
+    calls made."""
 
-    def __init__(self, backend):
+    def __init__(self, backend, every=1):
         import collections
+        import itertools
         import threading
 
         import torch
@@ -2604,10 +2645,18 @@ class _WorkerOps:
                 return out
 
         fn = backend.process_chunk
+        calls = itertools.count()
+        self.counted_calls = self.counted_closures = 0
 
         def counted(*a, **kw):
-            with Mode():
+            if next(calls) % every:
                 return fn(*a, **kw)
+            before = backend.n_closures
+            with Mode():
+                out = fn(*a, **kw)
+            self.counted_calls += 1
+            self.counted_closures += backend.n_closures - before
+            return out
 
         backend.process_chunk = counted
 
@@ -2615,11 +2664,13 @@ class _WorkerOps:
 def _worker_ops(ops, label, log):
     """Log the CUDA ops that a `_WorkerOps` counted by thread and return the
     backend worker's (0 is expected under compute_device "auto": its loop
-    closure and the retire-time stereo detection included)."""
+    closure and the retire-time stereo detection included). A sampled count
+    must have seen a loop closure (else it returns -1)."""
     worker = ops.by_thread["mapping-backend"]
-    log(f"{label}: CUDA ops (not views) of the backend calls by thread {dict(ops.by_thread)}; the worker's "
-        f"{worker} (expected 0 under compute_device auto)")
-    return worker
+    log(f"{label}: CUDA ops (not views) of the backend calls by thread {dict(ops.by_thread)} over "
+        f"{ops.counted_calls} counted calls (every {WORKER_OPS_EVERY}th), which made {ops.counted_closures} loop "
+        f"closures; the worker's {worker} (expected 0 under compute_device auto, with a closure counted)")
+    return worker if ops.counted_closures else -1
 
 
 def _record_ba(backend):
@@ -2916,7 +2967,7 @@ def _slam_drift(poses, stream, card, log):
                                                      pose_write_back="off", fold_min_span_frac=2.0,
                                                      loop_closure_cfg=LoopClosureConfig(min_gap=4, min_matches=10,
                                                                                         min_inliers=8)))
-        ops = _WorkerOps(backend)
+        ops = _WorkerOps(backend, WORKER_OPS_EVERY)
         captured = {}
         _reset_launches()
         t0 = time.perf_counter()
@@ -2936,8 +2987,8 @@ def _slam_drift(poses, stream, card, log):
         f"the JAX package's accuracy records (odometry, anchored, online) {JAX_DRIFT_ATES_M} m; robust launches "
         f"{launches[1]} (expected {N_LEVELS * (n - 1)}); {'WIN' if win else 'FAILED'}")
     log(f"phase 24 slam_drift frames/s: {n / wall:.2f} with the backend ({wall:.3f} s, process_chunk busy "
-        f"{backend.busy_s:.3f} s, its CUDA ops counted), {n / wall_off:.2f} mapping off ({wall_off:.3f} s), "
-        f"streamed {card}")
+        f"{backend.busy_s:.3f} s, the CUDA ops of every {WORKER_OPS_EVERY}th call counted), {n / wall_off:.2f} "
+        f"mapping off ({wall_off:.3f} s), streamed {card}")
     if not win or launches != (0, N_LEVELS * (n - 1)) or worker_ops != 0:
         raise AssertionError(f"phase 24: the slam_drift gate failed, launches {launches} off or the worker's CUDA "
                              f"ops {worker_ops}")
@@ -2991,7 +3042,7 @@ def _kitti_loop(poses, stream, card, log):
         backend = _timed_backend(ChunkMappingBackend(enable_ba=True, enable_loop_closure=True,
                                                      loop_closure_cfg=LoopClosureConfig(
                                                          min_gap=max(6, n // 40), min_matches=10, min_inliers=8)))
-        ops = _WorkerOps(backend)
+        ops = _WorkerOps(backend, WORKER_OPS_EVERY)
         captured = {}
         timer.reset()
         _reset_launches()
@@ -3012,7 +3063,8 @@ def _kitti_loop(poses, stream, card, log):
         f"accuracy records (odometry, anchored, online) {JAX_LOOP_ATES_M} m; graph: {g.last_solve_nodes} nodes, "
         f"last solve {g.last_solve_s:.3f} s, slowest {g.max_solve_s:.3f} s; launches {launches} (expected "
         f"({KITTI_LEVELS * (n - 1)}, 0)); {'WIN' if win else 'FAILED'}")
-    log(f"phase 25 kitti_loop frames/s: {n / wall:.2f} with the backend ({wall:.3f} s, its CUDA ops counted), "
+    log(f"phase 25 kitti_loop frames/s: {n / wall:.2f} with the backend ({wall:.3f} s, the CUDA ops of every "
+        f"{WORKER_OPS_EVERY}th call counted), "
         f"{n / wall_off:.2f} mapping off ({wall_off:.3f} s), streamed {card}")
     _backend_split(backend, wall, -(-(n - 1) // KITTI_CHUNK), "phase 25 kitti_loop streamed", card, log)
     if not win or launches != (KITTI_LEVELS * (n - 1), 0) or worker_ops != 0:
@@ -3442,6 +3494,324 @@ def _viewer_and_resume(slam, odometry, robust, device, card, log):
     return launches
 
 
+# phase 28: the mesh
+MESH_RANKS = 2  # processes sharing the card in (b)
+MESH_TIMEOUT_S = 300  # (b)'s group timeout and its ranks' wall limit
+MESH_POSE_TOL = 1e-3  # (b) against (a): per pair and per pose, SE(3) log
+
+
+def _lazy_stream(make):
+    """A stream whose frames are made (``make()``) at its first pull."""
+    yield from make()
+
+
+def _trajectory_gap(got, want):
+    """(largest per-frame SE(3) gap, bit-equal poses and covariances) of two
+    runs' trajectories, sequence by sequence."""
+    from vslam_tpu_torch.core import lie_np
+
+    gap, same = 0.0, True
+    for a, b in zip(got, want, strict=True):
+        if [r[0] for r in a] != [r[0] for r in b]:
+            return float("inf"), False
+        for (_, Ta, Ca), (_, Tb, Cb) in zip(a, b):
+            gap = max(gap, float(np.linalg.norm(lie_np.log(lie_np.relative(Ta, Tb)))))
+            same = same and np.array_equal(Ta, Tb) and np.array_equal(Ca, Cb)
+    return gap, same
+
+
+def _mesh_one(frames, track, suite_streams, suite_run, card, log):
+    """Phase 28 (a): an NCCL group of one in this process on cuda:0.
+    ``track`` is phase 6's (ekf0, dts, cfg, (ekf, rel, valid)); ``suite_run``
+    phase 21's counted run of ``suite_streams``. Returns ((quadratic,
+    robust) launches, the kernels' largest difference from their plain
+    versions, (rel, valid, frac) of the sharded step on the host)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from vslam_tpu_torch.alignment import fused_solve
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.odometry.sequential import _upload
+    from vslam_tpu_torch.parallel import batched, multihost, sequences
+    from vslam_tpu_torch.parallel import mesh as mesh_lib
+
+    ekf0, dts, cfg_huber, (ekf1, rel_t, valid_t) = track
+    with tempfile.TemporaryDirectory() as d:
+        dev = multihost.initialize(f"file://{d}/store", 1, 0)
+        try:
+            if dist.get_backend() != "nccl" or dev != torch.device("cuda", 0):
+                raise AssertionError(f"phase 28 (a): a group of {dist.get_backend()} on {dev}")
+            mesh = batched.make_mesh()
+            step = batched.sharded_tracking_step(mesh, cfg_huber)
+            args = batched.shard_batch((ekf0, frames["ref"], frames["cur"], dts), mesh)
+            robust_inputs = {}
+            _reset_launches()
+            with _tap(fused_solve, "solve_level_fused", _capture_levels(robust_inputs)):
+                ekf_s, rel_s, valid_s, frac = step(*args)
+            _sync()
+            launches_track = _launches()
+            diff = _max_abs_diff((*ekf_s.pose, ekf_s.velocity, ekf_s.P, rel_s.R, rel_s.t, valid_s),
+                                 (*ekf1.pose, ekf1.velocity, ekf1.P, rel_t.R, rel_t.t, valid_t))
+            mean_valid = float(valid_t.float().mean())
+            log(f"phase 28 (a) sharded_tracking_step in an NCCL group of one (mesh {mesh.mesh.tolist()}, "
+                f"{dist.get_backend()}): B={B} {H}x{W}, Huber; launches (quadratic, robust) {launches_track}; ekf, "
+                f"rel and valid against phase 6's tracking_step: max abs difference {diff:.3e}; frac {float(frac)} "
+                f"(valid's mean {mean_valid})")
+            if launches_track != (0, N_LEVELS) or diff != 0.0 or float(frac) != mean_valid:
+                raise AssertionError(f"phase 28 (a): launches {launches_track}, difference {diff} or frac "
+                                     f"{float(frac)} off")
+
+            cfg = _odometry_cfg("odometry")
+            camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2)
+            odo = sequences.MultiSequenceOdometry([camera] * SUITE_S, cfg, chunk=SUITE_CHUNK, mesh=batched.make_mesh())
+            quad_inputs = {}
+            _reset_launches()
+            with _tap(fused_solve, "solve_level_fused", _capture_levels(quad_inputs)):
+                res = odo.run([iter(s) for s in suite_streams])
+            _sync()
+            launches_run, fracs = _launches(), list(odo.fracs)
+            firsts, chunks = odo.stage_streams([iter(s) for s in suite_streams])
+            _reset_launches()
+            res_staged = odo.run_staged(firsts, chunks)
+            _sync()
+            launches_staged = _launches()
+            gaps = [_trajectory_gap(r, suite_run) for r in (res, res_staged)]
+            n_steps = SUITE_FRAMES - 1
+            log(f"phase 28 (a) MultiSequenceOdometry(mesh=make_mesh()) S={SUITE_S} x {SUITE_FRAMES} frames: "
+                f"launches run {launches_run}, run_staged {launches_staged} (expected ({3 * n_steps}, 0) each); "
+                f"against phase 21's run: gap {gaps[0][0]:.3e} / {gaps[1][0]:.3e}, bit-equal {gaps[0][1]} / "
+                f"{gaps[1][1]}; the chunks' global valid fractions {fracs}")
+            if not (launches_run == launches_staged == (3 * n_steps, 0) and gaps[0][1] and gaps[1][1]):
+                raise AssertionError(f"phase 28 (a) suite: launches {launches_run} / {launches_staged} or poses off")
+
+            def first_states():
+                return sequences.init_states(_upload(np.stack([f[1] for f in firsts]), dev),
+                                             _upload(np.stack([f[2] for f in firsts]), dev), odo.cameras, cfg)
+
+            c = chunks[0]
+            want = sequences.scan_sequences(first_states(), c.intensity, c.depth, c.dts, c.live, odo.cameras, cfg)
+            states0 = first_states()
+            _reset_launches()
+            got = sequences.sharded_scan_sequences(mesh, cfg)(states0, c.intensity, c.depth, c.dts, c.live,
+                                                               odo.cameras)
+            _sync()
+            launches_scan = _launches()
+            diff_scan = _max_abs_diff((*got[1], got[2], got[3], got[4]), (*want[1], want[2], want[3], want[4]))
+            K = c.intensity.shape[1]
+            log(f"phase 28 (a) sharded_scan_sequences on one chunk (S={SUITE_S}, K={K}): launches {launches_scan}, "
+                f"poses, valid, cov and keyframes against scan_sequences: max abs difference {diff_scan:.3e}; frac "
+                f"{float(got[5])} (valid's mean {float(want[2].float().mean())})")
+            if (launches_scan != (3 * K, 0) or diff_scan != 0.0
+                    or float(got[5]) != float(want[2].float().mean())):
+                raise AssertionError(f"phase 28 (a) sharded_scan_sequences: launches {launches_scan}, difference "
+                                     f"{diff_scan} or frac off")
+
+            err = max(_levels_vs_plain({W: robust_inputs[W]}, "phase 28 (a) sharded_tracking_step robust", card, log),
+                      _levels_vs_plain({W: quad_inputs[W]}, "phase 28 (a) suite on the mesh", card, log))
+
+            unsharded = lambda: batched.tracking_step(ekf0, frames["ref"], frames["cur"], dts, cfg_huber)  # noqa: E731
+            sharded = lambda: step(*args)  # noqa: E731
+            u1, s1, s2, u2 = (_events_ms(fn, 3) for fn in (unsharded, sharded, sharded, unsharded))
+            counts = torch.zeros(2, device=dev)
+            mesh_lib.all_reduce_sum(counts, mesh, ("data",))
+            _sync()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                mesh_lib.all_reduce_sum(counts, mesh, ("data",))
+            host_us = (time.perf_counter() - t0) / 100 * 1e6
+            _sync()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                mesh_lib.all_reduce_sum(counts, mesh, ("data",))
+                _sync()
+            synced_us = (time.perf_counter() - t0) / 100 * 1e6
+            log(f"phase 28 (a) sharded_tracking_step {B / min(s1, s2) * 1e3:.1f} pairs/s against tracking_step's "
+                f"{B / min(u1, u2) * 1e3:.1f} (ms per call of {B} pairs, runs unsharded, sharded, sharded, unsharded: "
+                f"{u1:.3f}, {s1:.3f}, {s2:.3f}, {u2:.3f}); the counts' all_reduce (clone + NCCL all_reduce of 2 f32): "
+                f"{host_us:.1f} us of host time a call, {synced_us:.1f} us a call with a synchronize after each "
+                f"(mean of 100) {card}")
+        finally:
+            dist.destroy_process_group()
+    launches = (launches_run[0] + launches_staged[0] + launches_scan[0], launches_track[1])
+    ref = (rel_s.R.cpu().numpy(), rel_s.t.cpu().numpy(), valid_s.cpu().numpy(), float(frac))
+    return launches, err, ref
+
+
+def _mesh_rank(rank, world, tmp) -> int:
+    """Phase 28 (b), one rank: a process on cuda:0 in a gloo group of
+    ``world`` (NCCL refuses two ranks on one card). Renders its own block of
+    the 64 pairs; runs sharded_tracking_step, sharded_tracking_step_2d on a
+    (world, 1) mesh and MultiSequenceOdometry(mesh=) on phase 21's four
+    streams, made lazily (a rank renders its own two); writes what it got
+    to ``tmp``/out{rank}.pkl."""
+    import dataclasses
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from vslam_tpu_torch.core import se3
+    from vslam_tpu_torch.core.camera import Camera
+    from vslam_tpu_torch.kalman import ekf_se3
+    from vslam_tpu_torch.parallel import batched, multihost, sequences
+    from vslam_tpu_torch.solvers import LossConfig
+
+    rank, world = int(rank), int(world)
+    dev = multihost.initialize(f"file://{tmp}/store", world, rank, local_device_ids=[0], backend="gloo",
+                               timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    out = {"device": str(dev), "backend": dist.get_backend()}
+    try:
+        mesh = batched.make_mesh()
+        n = B // world
+        frames, _ = _render_pairs(dev, range(rank * n, (rank + 1) * n), names=("ref", "cur"))
+        cfg = dataclasses.replace(_production_cfg(), loss=LossConfig("Huber"))
+        ekf0 = ekf_se3.init(pose=se3.identity((B,), device=dev))
+        dts = torch.full((B,), 1.0 / 30.0, device=dev)
+        ekf_b, dt_b = batched.shard_batch((ekf0, dts), mesh)
+        step = batched.sharded_tracking_step(mesh, cfg)
+        _reset_launches()
+        _, rel, valid, frac = step(ekf_b, frames["ref"], frames["cur"], dt_b)
+        _sync()
+        out.update(track_launches=_launches(), rel=(rel.R.cpu().numpy(), rel.t.cpu().numpy()),
+                   valid=valid.cpu().numpy(), frac=float(frac))
+        dist.barrier()
+        out["track_s"] = _walls(lambda: step(ekf_b, frames["ref"], frames["cur"], dt_b), 3)
+
+        mesh2 = multihost.dcn_ici_mesh(n_hosts=world)
+        ekf_2, dt_2 = multihost.shard_batch_2d((ekf0, dts), mesh2)
+        ref_2, cur_2 = multihost.host_local_to_global((frames["ref"], frames["cur"]), mesh2)
+        _reset_launches()
+        _, rel2, valid2, frac2 = multihost.sharded_tracking_step_2d(mesh2, cfg)(ekf_2, ref_2, cur_2, dt_2)
+        _sync()
+        out.update(track2d_launches=_launches(), mesh2=mesh2.mesh.tolist(),
+                   rel2d=(rel2.R.cpu().numpy(), rel2.t.cpu().numpy()), valid2d=valid2.cpu().numpy(),
+                   frac2d=float(frac2))
+
+        poses, rendered = _suite_poses(), {}
+
+        def sequence(s):
+            if s not in rendered:
+                rendered[s] = _suite_sequence(s, poses)
+            return rendered[s]
+
+        streams = lambda: [_lazy_stream(lambda s=s: sequence(s)) for s in range(SUITE_S)]  # noqa: E731
+        camera = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2)
+        odo = sequences.MultiSequenceOdometry([camera] * SUITE_S, _odometry_cfg("odometry"), chunk=SUITE_CHUNK,
+                                              mesh=mesh)
+        _reset_launches()
+        out["run"] = odo.run(streams())
+        _sync()
+        out["run_launches"], out["fracs"] = _launches(), list(odo.fracs)
+        firsts, chunks = odo.stage_streams(streams())
+        _reset_launches()
+        out["run_staged"] = odo.run_staged(firsts, chunks)
+        _sync()
+        out["staged_launches"], out["rendered"] = _launches(), sorted(rendered)
+        dist.barrier()
+        out["staged_s"] = _walls(lambda: odo.run_staged(firsts, chunks), 2)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/out{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def _mesh_ranks(ref, suite_run, card, log):
+    """Phase 28 (b): MESH_RANKS processes sharing the card (`_mesh_rank`),
+    each within MESH_POSE_TOL of (a)'s pairs (``ref``: rel R, t, valid,
+    frac) and of phase 21's run. A rank that fails or outlasts
+    MESH_TIMEOUT_S fails the phase."""
+    import os
+    import pickle
+    import tempfile
+    from pathlib import Path
+
+    from vslam_tpu_torch.core import lie_np
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(root), os.environ.get("PYTHONPATH")])))
+    code = "import sys, chip_smoke; sys.exit(chip_smoke._mesh_rank(*sys.argv[1:]))"
+    with tempfile.TemporaryDirectory() as d:
+        logs = [Path(d, f"rank{r}.log") for r in range(MESH_RANKS)]
+        procs = []
+        for r in range(MESH_RANKS):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen([sys.executable, "-c", code, str(r), str(MESH_RANKS), d], cwd=root,
+                                              env=env, stdout=f, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        try:
+            while any(p.poll() is None for p in procs) and not any(p.returncode for p in procs):
+                if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            for r in range(MESH_RANKS):
+                log(f"phase 28 (b) rank {r} exited with {codes[r]}:\n{logs[r].read_text()[-3000:]}")
+            raise AssertionError(f"phase 28 (b): ranks exited with {codes} after {wall:.1f} s")
+        outs = [pickle.loads(Path(d, f"out{r}.pkl").read_bytes()) for r in range(MESH_RANKS)]
+
+    n = B // MESH_RANKS
+    n_steps = SUITE_FRAMES - 1
+    failures = []
+    gap_pairs, same_pairs, gap_suite, same_suite = 0.0, True, 0.0, True
+    for r, o in enumerate(outs):
+        block = slice(r * n, (r + 1) * n)
+        for key in ("rel", "rel2d"):
+            R, t = o[key]
+            gap_pairs = max(gap_pairs, max(float(np.linalg.norm(lie_np.log(lie_np.relative(
+                _se3_matrix(R[i], t[i]), _se3_matrix(ref[0][block][i], ref[1][block][i]))))) for i in range(n)))
+            same_pairs = same_pairs and np.array_equal(R, ref[0][block]) and np.array_equal(t, ref[1][block])
+        for key in ("run", "run_staged"):
+            g, same = _trajectory_gap(o[key], suite_run)
+            gap_suite, same_suite = max(gap_suite, g), same_suite and same
+        expected = {"track_launches": (0, N_LEVELS), "track2d_launches": (0, N_LEVELS),
+                    "run_launches": (3 * n_steps, 0), "staged_launches": (3 * n_steps, 0)}
+        counts = {k: o[k] for k in expected}
+        log(f"phase 28 (b) rank {r} of {MESH_RANKS} ({o['backend']} on {o['device']}, pairs {block.start}-"
+            f"{block.stop - 1}, the (host, data) mesh {o['mesh2']}): launches (quadratic, robust) {counts}; frac "
+            f"{o['frac']} / {o['frac2d']} (1-D / 2-D); rendered suite sequences {o['rendered']}; the chunks' "
+            f"global valid fractions {o['fracs']}")
+        if counts != expected:
+            failures.append(f"rank {r} launches {counts}")
+        if not (o["frac"] == o["frac2d"] == ref[3]):
+            failures.append(f"rank {r} frac {o['frac']} / {o['frac2d']} against {ref[3]}")
+        if not (np.array_equal(o["valid"], ref[2][block]) and np.array_equal(o["valid2d"], ref[2][block])):
+            failures.append(f"rank {r} valid")
+        if o["rendered"] != list(range(r * SUITE_S // MESH_RANKS, (r + 1) * SUITE_S // MESH_RANKS)):
+            failures.append(f"rank {r} rendered sequences {o['rendered']}")
+    log(f"phase 28 (b) against (a): pairs max SE(3) gap {gap_pairs:.3e} (gate {MESH_POSE_TOL}), bit-equal "
+        f"{same_pairs}; suite poses max gap {gap_suite:.3e} (gate {MESH_POSE_TOL}), bit-equal {same_suite}")
+    pairs_s = B / max(min(o["track_s"]) for o in outs)
+    frames_s = SUITE_S * SUITE_FRAMES / max(min(o["staged_s"]) for o in outs)
+    log(f"phase 28 (b) aggregate over {MESH_RANKS} ranks sharing one card (not a scaling measurement: the ranks "
+        f"share the card and the host): sharded_tracking_step {pairs_s:.1f} pairs/s (per rank best of "
+        f"{', '.join(', '.join(f'{w:.3f}' for w in o['track_s']) for o in outs)} s), the suite run_staged "
+        f"{frames_s:.2f} frames/s (per rank best of "
+        f"{', '.join(', '.join(f'{w:.3f}' for w in o['staged_s']) for o in outs)} s); the ranks' wall {wall:.1f} s, "
+        f"start-up included {card}")
+    if failures or not (gap_pairs <= MESH_POSE_TOL and gap_suite <= MESH_POSE_TOL):
+        raise AssertionError(f"phase 28 (b): {failures}, pair gap {gap_pairs}, pose gap {gap_suite}")
+
+
+def _se3_matrix(R, t):
+    """A pose's 4x4 f64 matrix, R re-orthonormalized by SVD (as the
+    odometry's fetch does)."""
+    T = np.eye(4)
+    u, _, vt = np.linalg.svd(np.asarray(R, np.float64))
+    T[:3, :3], T[:3, 3] = u @ vt, t
+    return T
+
+
 def result_line(kind: str) -> dict:
     """The contract's last line: the run used one device, cuda:0."""
     return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}
@@ -3675,7 +4045,7 @@ def main() -> int:
     t0 = time.perf_counter()
     suite_poses, suite_streams = _suite_streams()
     log(f"phase 21: rendered {SUITE_S} x {SUITE_FRAMES} frames at {H}x{W} in {time.perf_counter() - t0:.1f} s")
-    launches_suite, err_suite = _suite(suite_poses, suite_streams, card, log)
+    launches_suite, err_suite, suite_run = _suite(suite_poses, suite_streams, card, log)
     _sync()
     log(f"phase 21 took {time.perf_counter() - t0:.1f} s")
 
@@ -3728,8 +4098,15 @@ def main() -> int:
                                          streams["robust"], device, card, log)
     _sync()
     log(f"phase 27 took {time.perf_counter() - t0:.1f} s")
-    max_abs = max(max_abs, err_kitti, err_suite, err_slam, err_loop)
-    max_abs_robust = max(max_abs_robust, err_drift)
+
+    # 28. the mesh: a group of one here, then ranks sharing the card
+    t0 = time.perf_counter()
+    launches_mesh, err_mesh, mesh_ref = _mesh_one(frames, (ekf0, dts, cfg_huber, (ekf1, rel_t, valid_t)),
+                                                  suite_streams, suite_run, card, log)
+    _mesh_ranks(mesh_ref, suite_run, card, log)
+    log(f"phase 28 took {time.perf_counter() - t0:.1f} s")
+    max_abs = max(max_abs, err_kitti, err_suite, err_slam, err_loop, err_mesh)
+    max_abs_robust = max(max_abs_robust, err_drift, err_mesh)
     max_abs_robust = max(max_abs_robust, err_sizes["solve_level_fused_robust"])
     err_new["fused_level_sample"] = max(err_new["fused_level_sample"], err_sizes["fused_level_sample"])
     for name, n in launches_pipe.items():
@@ -3744,7 +4121,7 @@ def main() -> int:
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:533",
         "launches": launches_pairs[0] + launches_odo["odometry"] + launches_pipe["solve_level_fused"]
-        + launches_kitti + launches_suite + launches_slam + launches_loop + launches_viewer,
+        + launches_kitti + launches_suite + launches_slam + launches_loop + launches_viewer + launches_mesh[0],
         "max_abs_err": max_abs,
         "ms": sum(ms_k.values()),
         "plain_ms": sum(ms_p.values()),
@@ -3757,7 +4134,7 @@ def main() -> int:
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:520",
         "launches": launches_track[1] + launches_odo["robust"] + robust_vlog
-        + launches_pipe["solve_level_fused_robust"] + launches_drift,
+        + launches_pipe["solve_level_fused_robust"] + launches_drift + launches_mesh[1],
         "max_abs_err": max_abs_robust,
         "ms": sum(ms_k_robust.values()),
         "plain_ms": sum(ms_p_robust.values()),

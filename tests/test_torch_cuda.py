@@ -346,6 +346,48 @@ def test_align_pairs_launches_once_per_level(device):
     torch.testing.assert_close(rel.t, plain[0].t, rtol=0, atol=1e-3)
 
 
+def test_sharded_tracking_step_in_an_nccl_group_of_one_equals_tracking_step(device, tmp_path):
+    """`sharded_tracking_step` in an NCCL group of one (the default backend
+    on the card) solves the whole batch as `tracking_step` does, bit for
+    bit (Huber, `fused_gn`: kernel 1b), and its `frac` is the mean of valid."""
+    import torch.distributed as dist
+
+    from vslam_tpu_torch.core import se3
+    from vslam_tpu_torch.kalman import ekf_se3
+    from vslam_tpu_torch.parallel import batched, multihost
+
+    B = 4
+    K = synthetic.camera_matrix(FX, FX, (W - 1) / 2, (H - 1) / 2)
+    cam = Camera.create(FX, FX, (W - 1) / 2, (H - 1) / 2, device=device)
+    rng = np.random.default_rng(3)
+    refs, curs = [], []
+    for b in range(B):
+        xi = np.concatenate([rng.uniform(-0.01, 0.01, 3), rng.uniform(-0.005, 0.005, 3)])
+        for lst, pose in ((refs, np.eye(4)), (curs, lie_np.exp(xi))):
+            inten, depth = synthetic.render(K, pose, (H, W), synthetic.default_scene(seed=b))
+            lst.append(create_frame(torch.as_tensor(inten, device=device), torch.as_tensor(depth, device=device),
+                                    cam, n_levels=2))
+    ref, cur = stack_frames(refs), stack_frames(curs)
+    cfg = ic.AlignmentConfig(min_gradient=10.0, loss=LossConfig("Huber"), sampler="fused_gn", max_points=512,
+                             prior_weight=(FX / 525.0) ** 2)
+    ekf0 = ekf_se3.init(pose=se3.identity((B,), device=device))
+    dt = torch.full((B,), 1.0 / 30.0, device=device)
+    want = batched.tracking_step(ekf0, ref, cur, dt, cfg)
+    assert multihost.initialize(f"file://{tmp_path}/store", 1, 0) == torch.device("cuda", 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = batched.make_mesh()
+        before = fused_solve.ROBUST_LAUNCHES
+        got = batched.sharded_tracking_step(mesh, cfg)(*batched.shard_batch((ekf0, ref, cur, dt), mesh))
+        torch.cuda.synchronize()
+        assert fused_solve.ROBUST_LAUNCHES == before + 2
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2])):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert float(got[3]) == float(want[2].float().mean())
+
+
 @pytest.mark.parametrize(
     "F,max_points,interpolation,image_dtype",
     [

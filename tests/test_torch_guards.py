@@ -1,7 +1,7 @@
 """Guards of the port's boundaries: it imports without JAX, its kernel
-wrappers never fall back silently, its entry points default to the card,
-what it does not port yet raises, and chip_smoke's last line keeps the
-contract's keys."""
+wrappers never fall back silently, its entry points (the multi-GPU ones
+too) default to the card, and chip_smoke's last line keeps the contract's
+keys."""
 
 import ast
 import dataclasses
@@ -36,7 +36,9 @@ from vslam_tpu_torch.io.kitti import KittiDataset
 from vslam_tpu_torch.io import synthetic
 from vslam_tpu_torch.odometry.sequential import SequentialConfig, SequentialOdometry, stage_stream
 from vslam_tpu_torch.odometry.sequential_mapping import ChunkMappingBackend
-from vslam_tpu_torch.parallel.sequences import MultiSequenceOdometry, sharded_scan_sequences
+from vslam_tpu_torch.parallel import batched, multihost
+from vslam_tpu_torch.parallel import mesh as mesh_lib
+from vslam_tpu_torch.parallel.sequences import MultiSequenceOdometry
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -62,8 +64,9 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # the slices' modules, KITTI's, the suite's, the aligners', the mapping
-    # backend's, the viewer's, the checkpoint's and the EXR and fixture readers among them
-    assert int(out.stdout.split()[-1]) >= 69
+    # backend's, the viewer's, the checkpoint's, the EXR and fixture readers
+    # and the multi-GPU layer's (parallel.mesh, parallel.multihost) among them
+    assert int(out.stdout.split()[-1]) >= 71
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -179,6 +182,21 @@ def _kitti_depth():
         return torch.zeros(1, device=ds.device)
 
 
+def _group_of_one(device, make):
+    """``make()`` inside a process group of one (over a file store) that
+    `multihost.initialize` joined on ``device``; the group ends after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as d:
+        dev = multihost.initialize(f"file://{d}/store", 1, 0, device=device)
+        try:
+            return make(dev)
+        finally:
+            dist.destroy_process_group()
+
+
 def _render_boxes_batch_device() -> torch.Tensor:
     """A tensor on the device `render_boxes_batch` renders on when none is
     named (its images reach the caller as numpy)."""
@@ -230,12 +248,14 @@ def _cli_device() -> str:
         lambda: torch.zeros(1, device=IcpAligner().device),
         lambda: torch.zeros(1, device=ChunkMappingBackend().device),
         _render_boxes_batch_device,
+        lambda: _group_of_one("cpu", lambda _: torch.zeros(1, device=mesh_lib.mesh_device(batched.make_mesh()))),
+        lambda: _group_of_one(None, lambda dev: torch.zeros(1, device=dev)),
     ],
     ids=["Camera.create", "se3.identity", "ekf_se3.init", "stage_stream", "interop.camera_from_numpy",
          "interop.se3_from_numpy", "interop.frame_from_numpy", "interop.level_data_from_numpy",
          "interop.level_data_tuple_from_numpy", "interop.ekf_state_from_numpy", "OdometryPipeline",
          "evaluate --device", "KittiDataset", "MultiSequenceOdometry", "RgbdAlignerFa", "IcpAligner",
-         "ChunkMappingBackend", "render_boxes_batch"],
+         "ChunkMappingBackend", "render_boxes_batch", "make_mesh", "multihost.initialize"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device named, an entry point puts its tensors on CUDA, and
@@ -245,29 +265,6 @@ def test_entry_points_default_to_the_card(make):
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             make()
-
-
-@pytest.mark.parametrize(
-    "kwargs,cfg,what",
-    [
-        pytest.param({"mesh": object()}, SequentialConfig(), "torch.distributed",
-                     id="kwargs3-cfg3-torch.distributed"),
-    ],
-)
-def test_unported_sequential_options_raise(kwargs, cfg, what):
-    """`MultiSequenceOdometry` (mesh) refuses what waits for an unported
-    module, naming it."""
-    cam = Camera.create(100.0, 100.0, 31.5, 23.5, device="cpu")
-    with pytest.raises(NotImplementedError, match=re.escape(what)):
-        if {"mappings", "mesh"} & set(kwargs):
-            MultiSequenceOdometry([cam], cfg, **kwargs)
-        else:
-            SequentialOdometry(cam, cfg, **kwargs)
-
-
-def test_sharded_scan_sequences_names_torch_distributed():
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        sharded_scan_sequences(object(), SequentialConfig())
 
 
 @pytest.mark.parametrize("make", [

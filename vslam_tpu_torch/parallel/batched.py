@@ -1,11 +1,22 @@
-"""Batched frame-pair alignment — the throughput path (port of
-`vslam_tpu.parallel.batched.align_pairs`).
+"""Batched and sharded frame-pair tracking — the throughput path (port of
+`vslam_tpu.parallel.batched`).
 
 The JAX package aligns B independent pairs with `vmap`; here B is the
 leading axis of every tensor and one `ic.align` call serves the batch, so
 the whole-level GN kernel runs once per pyramid level for all B pairs.
-`tracking_step` adds a per-pair EKF around it. The device-mesh functions
-wait for the multi-GPU item of ROADMAP.md.
+`tracking_step` adds a per-pair EKF around it.
+
+Across GPUs the port runs one process a card (a rank; `multihost.
+initialize`), and `make_mesh` lays the ranks on a 1-D `DeviceMesh`.
+`shard_batch` gives each rank its block of the batch, and
+`sharded_tracking_step` solves the block's pairs on the rank's card; one
+`all_reduce` of the pair (converged, pairs) gives every rank the global
+converged fraction:
+
+    multihost.initialize()  # in each process torchrun starts
+    mesh = make_mesh()
+    step = sharded_tracking_step(mesh, cfg)
+    ekf, rel, valid, frac = step(*shard_batch((ekf, ref, cur, dt), mesh))
 """
 
 from __future__ import annotations
@@ -21,8 +32,9 @@ from ..core.frame import Frame
 from ..core.se3 import SE3
 from ..kalman import ekf_se3
 from ..utils.tree import tree_map
+from . import mesh as mesh_lib
 
-__all__ = ["align_pairs", "tracking_step"]
+__all__ = ["align_pairs", "tracking_step", "make_mesh", "shard_batch", "sharded_tracking_step"]
 
 
 def align_pairs(
@@ -67,3 +79,53 @@ def tracking_step(
         lambda a, b: torch.where(valid.view(-1, *([1] * (a.dim() - 1))), a, b), new, ekf_pred
     )
     return ekf_new, rel, valid
+
+
+# ---------------------------------------------------------------------------
+# Several GPUs: one rank a card
+# ---------------------------------------------------------------------------
+
+
+def make_mesh(devices=None, axis: str = "data", device=None):
+    """A 1-D `DeviceMesh` named ``(axis,)`` over every rank of the process
+    group, or over the ranks listed in ``devices`` (every rank calls it,
+    in the listed ranks' mesh order). ``device`` names the ranks' device
+    type: CUDA when None (raising without CUDA), "cpu" for gloo groups."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device_type = mesh_lib.rank_device(device).type
+    mesh_lib.require_group("make_mesh")
+    ranks = list(range(torch.distributed.get_world_size())) if devices is None else [int(r) for r in devices]
+    return DeviceMesh(device_type, ranks, mesh_dim_names=(axis,))
+
+
+def shard_batch(tree, mesh, axis: str = "data"):
+    """This rank's block of a batched tree that every rank holds whole:
+    block i of the leading axis for the rank at coordinate i of ``axis``,
+    on the rank's device; 0-dim leaves are replicated. A leading axis that
+    the axis size does not divide raises."""
+    index, count = mesh_lib.axis_index(mesh, axis), mesh_lib.axis_size(mesh, axis)
+    device = mesh_lib.mesh_device(mesh)
+    return tree_map(lambda x: mesh_lib.block(x, index, count, device), tree)
+
+
+def sharded_tracking_step(mesh, cfg: AlignmentConfig, axis: str = "data"):
+    """The tracking step over a batch sharded on ``axis``: a callable
+    ``(ekf, ref, cur, dt)`` on this rank's blocks returning ``(ekf, rel,
+    valid, frac)``. The per-pair solves are the rank's own (`tracking_step`
+    on its block); ``frac``, the converged fraction of the whole batch, is
+    one `all_reduce` of (converged, pairs) and the same on every rank."""
+    return _sharded_step(mesh, cfg, (axis,))
+
+
+def _sharded_step(mesh, cfg: AlignmentConfig, axes):
+    """`tracking_step` on this rank's block; ``frac`` reduced over ``axes``
+    in order (`multihost.sharded_tracking_step_2d` passes two)."""
+    for axis in axes:
+        mesh_lib.axis_index(mesh, axis)  # this rank must be on the mesh
+
+    def step(ekf, ref, cur, dt):
+        ekf_new, rel, valid = tracking_step(ekf, ref, cur, dt, cfg)
+        return ekf_new, rel, valid, mesh_lib.global_fraction(valid.sum(), valid.shape[0], mesh, axes)
+
+    return step

@@ -16,16 +16,24 @@ run out passes its state through and re-emits its last pose.
     trajectories = odo.run(streams)  # one [(t_ns, world->cam 4x4, cov 6x6), ...] per stream
 
 With ``mappings=`` each sequence has its own `ChunkMappingBackend` (full
-SLAM per sequence, the JAX package's `sequences.py:170-200, 336-470`). A
-mesh of devices is not ported yet and raises NotImplementedError.
+SLAM per sequence, the JAX package's `sequences.py:170-200, 336-470`).
+
+With ``mesh=`` (a 1-D `DeviceMesh` of ranks, `batched.make_mesh`, one
+process a GPU) the S sequences are split into equal blocks over the mesh's
+"data" axis: every rank is given all S cameras and streams, reads and
+scans only its block's, and at the end of the run one `all_gather_object`
+hands every rank all S trajectories. Each chunk's only collective is the
+reduce of its global valid fraction (`sharded_scan_sequences`).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import se3
 from ..core.camera import Camera
@@ -40,6 +48,7 @@ from ..odometry.sequential import (
 )
 from ..utils import timer
 from ..utils.log import get_logger
+from . import mesh as mesh_lib
 
 __all__ = [
     "stack_cameras",
@@ -49,13 +58,6 @@ __all__ = [
     "StagedSuiteChunk",
     "MultiSequenceOdometry",
 ]
-
-
-def _no_mesh():
-    return NotImplementedError(
-        "sharding sequences over devices is not ported yet: it comes with torch.distributed "
-        "(one process per card)"
-    )
 
 
 class StagedSuiteChunk(NamedTuple):
@@ -80,10 +82,12 @@ def _fold_corrections(states: SequentialState, dR: torch.Tensor, dt: torch.Tenso
                            pose_last=se3.orthonormalize(se3.compose(states.pose_last, d)))
 
 
-def stack_cameras(cameras: Sequence[Camera]) -> Camera:
-    """S per-sequence cameras as one Camera with leaves (S,), on the first
-    camera's device where its leaves are tensors, else on CUDA."""
-    device = cameras[0].fx.device if torch.is_tensor(cameras[0].fx) else resolve(None)
+def stack_cameras(cameras: Sequence[Camera], device=None) -> Camera:
+    """S per-sequence cameras as one Camera with leaves (S,), on ``device``
+    where named, else on the first camera's device where its leaves are
+    tensors, else on CUDA."""
+    if device is None:
+        device = cameras[0].fx.device if torch.is_tensor(cameras[0].fx) else resolve(None)
     return Camera(*(torch.stack([torch.as_tensor(c, dtype=torch.float32, device=device) for c in leaves])
                     for leaves in zip(*cameras)))
 
@@ -110,9 +114,30 @@ def scan_sequences(states: SequentialState, intensity, depth, dt, live, cameras:
             cov.transpose(0, 1), is_kf.transpose(0, 1))
 
 
+def _valid_counts(valid: torch.Tensor, live):
+    """(valid live slots, live slots) of a chunk, as tensors on its device."""
+    if live is None:
+        return valid.sum(), torch.full((), valid.numel(), device=valid.device)
+    return (valid & live).sum(), live.sum()
+
+
 def sharded_scan_sequences(mesh, cfg: SequentialConfig, axis: str = "data"):
-    """Sequences sharded over several devices: not ported yet."""
-    raise _no_mesh()
+    """The chunk step over sequences sharded on ``axis``: a callable
+    ``(states, intensity, depth, dt, live, cameras)`` on this rank's block
+    of the S sequences (`scan_sequences`' arguments) returning ``(states,
+    poses, valid, cov, is_kf, frac)``. ``frac``, the chunk's tracking
+    health, is Σ(valid & live) / max(Σ live, 1) over the whole mesh from one
+    `all_reduce`, the same on every rank (the JAX function clamps each
+    device's live count before the sum; the two agree wherever every
+    device has a live slot)."""
+    mesh_lib.axis_index(mesh, axis)
+
+    def step(states, intensity, depth, dt, live, cameras):
+        states, poses, valid, cov, is_kf = scan_sequences(states, intensity, depth, dt, live, cameras, cfg)
+        frac = mesh_lib.global_fraction(*_valid_counts(valid, live), mesh, (axis,), clamp=True)
+        return states, poses, valid, cov, is_kf, frac
+
+    return step
 
 
 class MultiSequenceOdometry:
@@ -132,23 +157,42 @@ class MultiSequenceOdometry:
         sequence's row of the batched chain. With ``async_mapping`` the
         backends run on a small thread pool beside the next chunk's scan
         and their corrections fold one chunk later, deterministically (the
-        contract of `SequentialOdometry(async_mapping=True)`)."""
+        contract of `SequentialOdometry(async_mapping=True)`). ``mesh``: a
+        1-D `DeviceMesh` with its axis named "data" (`batched.make_mesh`);
+        S must split into equal blocks over it, and the block runs on the
+        rank's device. ``fracs`` then holds each chunk's global valid
+        fraction of the last run."""
+        cameras = list(cameras)
+        self.mesh = mesh
+        self._block = range(len(cameras))  # the sequences this process runs
+        device = None
         if mesh is not None:
-            raise _no_mesh()
-        self.cameras = stack_cameras(list(cameras))
+            if mesh.ndim != 1:
+                raise ValueError(f"the suite shards over a 1-D mesh, got {mesh.ndim} axes")
+            index, count = mesh_lib.axis_index(mesh, "data"), mesh_lib.axis_size(mesh, "data")
+            if len(cameras) % count:
+                raise ValueError(f"{len(cameras)} sequences do not split into {count} equal blocks over the mesh")
+            n = len(cameras) // count
+            self._block = range(index * n, (index + 1) * n)
+            device = mesh_lib.mesh_device(mesh)
+        self.cameras = stack_cameras(cameras[self._block.start:self._block.stop], device)
         self.device = self.cameras.fx.device
         self.cfg = cfg
         self.chunk = int(chunk)
         self.mappings = list(mappings) if mappings is not None else None
         if self.mappings is not None and len(self.mappings) != len(cameras):
             raise ValueError("need one mapping backend per sequence")
+        # with a mesh a rank drives its block's backends only; the other
+        # entries of `mappings` stay untouched in this process
+        self._mappings = None if mappings is None else self.mappings[self._block.start:self._block.stop]
         self.async_mapping = bool(async_mapping) and self.mappings is not None
+        self.fracs: List[float] = []
         self._backend_futures = None
         self._executor = None
         if self.async_mapping:
             import concurrent.futures
 
-            self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=min(len(self.mappings), 4),
+            self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=min(len(self._mappings), 4),
                                                                    thread_name_prefix="suite-mapping")
 
     def _camera(self, s: int) -> Camera:
@@ -156,20 +200,22 @@ class MultiSequenceOdometry:
         return Camera(*(leaf[s] for leaf in self.cameras))
 
     def _read_firsts(self, streams):
-        """Each stream's first frame, checked for the shared geometry."""
-        its = [iter(s) for s in streams]
+        """The first frame of each stream of this process's block, checked
+        for the shared geometry. The other streams are not read."""
+        first = self._block.start
+        its = [iter(s) for s in list(streams)[first:self._block.stop]]
         firsts = []
         for s, it in enumerate(its):
             try:
                 firsts.append(next(it))
             except StopIteration:
-                raise ValueError(f"sequence {s} yielded no frames (empty dataset / bad path?)") from None
+                raise ValueError(f"sequence {first + s} yielded no frames (empty dataset / bad path?)") from None
         shape = np.asarray(firsts[0][1]).shape
         for s, f in enumerate(firsts):
             if np.asarray(f[1]).shape != shape:
                 raise ValueError(
-                    f"all sequences must share frame geometry: sequence {s} is "
-                    f"{np.asarray(f[1]).shape}, sequence 0 is {shape} (the batched scan "
+                    f"all sequences must share frame geometry: sequence {first + s} is "
+                    f"{np.asarray(f[1]).shape}, sequence {first} is {shape} (the batched scan "
                     "steps all sequences together)"
                 )
         return its, firsts, shape
@@ -224,13 +270,15 @@ class MultiSequenceOdometry:
 
     def run(self, streams: Sequence[Iterable[Tuple[int, np.ndarray, np.ndarray]]]):
         """Returns, per sequence, a list of (t_ns, pose world->cam 4x4 f64,
-        cov 6x6 f64): the contract of `SequentialOdometry.run`."""
+        cov 6x6 f64): the contract of `SequentialOdometry.run`. With a mesh
+        every rank returns all S sequences."""
         firsts, chunk_iter = self._stage_iter(streams)
         return self._run_chunks(firsts, chunk_iter)
 
     def stage_streams(self, streams):
         """Stage every chunk of the suite on the device up front: (firsts,
-        chunks) for `run_staged`, which several replays may share."""
+        chunks) for `run_staged`, which several replays may share. With a
+        mesh only this rank's block is staged."""
         firsts, chunk_iter = self._stage_iter(streams)
         return firsts, list(chunk_iter)
 
@@ -257,17 +305,27 @@ class MultiSequenceOdometry:
         out: List[List[Tuple[int, np.ndarray, np.ndarray]]] = [
             [(int(f[0]), np.eye(4), np.eye(6))] for f in firsts
         ]
-        if self.mappings is not None:
+        if self._mappings is not None:
             # each sequence's frame 0 is its backend's first keyframe
-            for s, backend in enumerate(self.mappings):
+            for s, backend in enumerate(self._mappings):
                 backend.process_chunk([(int(firsts[s][0]), i0[s], d0[s])], [np.eye(4)], [np.eye(6)], [True],
                                       self._camera(s), self.cfg)
         pending = None
+        self.fracs = []
+        if self.mesh is not None:
+            # a rank whose streams have run out joins each chunk's reduce
+            # (with None) until no rank has frames left
+            chunk_iter = itertools.chain(chunk_iter, itertools.repeat(None))
         for sc in chunk_iter:
-            with timer.scope("suite.dispatch"):
-                states, poses, _, cov, is_kf = scan_sequences(states, sc.intensity, sc.depth, sc.dts, sc.live,
-                                                              self.cameras, self.cfg)
-            if self.mappings is not None:
+            if sc is not None:
+                with timer.scope("suite.dispatch"):
+                    states, poses, valid, cov, is_kf = scan_sequences(states, sc.intensity, sc.depth, sc.dts,
+                                                                      sc.live, self.cameras, self.cfg)
+            if self.mesh is not None and not self._reduce_chunk(None if sc is None else (valid, sc.live)):
+                break
+            if sc is None:
+                continue
+            if self._mappings is not None:
                 prev_deltas = {}
                 if self.async_mapping:
                     # fold chunk k-1's corrections while the device solves chunk k
@@ -291,14 +349,38 @@ class MultiSequenceOdometry:
             self._collect(out, *pending)
         if self.async_mapping:
             self._drain_backends(states)  # surface errors, finish the maps
-        return out
+        return out if self.mesh is None else self._gather(out)
+
+    def _reduce_chunk(self, counted) -> bool:
+        """The chunk's one collective: (valid live slots, live slots, ranks
+        with frames) summed over the mesh; ``counted`` is (valid, live) of
+        this rank's chunk, or None where its streams have run out. Appends
+        the global valid fraction to ``fracs``; False once no rank had a
+        frame in the chunk."""
+        with timer.scope("suite.reduce"):
+            if counted is None:
+                counts = torch.zeros(3, device=self.device)
+            else:
+                n_ok, n = _valid_counts(*counted)
+                counts = torch.stack((n_ok.float(), n.float(), torch.ones((), device=self.device)))
+            n_ok, n, ranks = mesh_lib.all_reduce_sum(counts, self.mesh, ("data",)).tolist()
+        if ranks == 0:
+            return False
+        self.fracs.append(n_ok / max(n, 1.0))
+        return True
+
+    def _gather(self, out):
+        """Every rank's trajectories in mesh order, on every rank."""
+        parts = [None] * mesh_lib.axis_size(self.mesh, "data")
+        dist.all_gather_object(parts, (self._block.start, out), group=self.mesh.get_group("data"))
+        return [traj for _, block in sorted(parts, key=lambda p: p[0]) for traj in block]
 
     def _backend_args(self, kf_rows, results, sc: StagedSuiteChunk):
         """Per sequence with frames in the chunk: (s, backend, process_chunk
         args, kwargs). Each keyframe extraction is queued here, on the
         driver's thread, so the backend threads launch nothing on the card."""
         calls = []
-        for s, backend in enumerate(self.mappings):
+        for s, backend in enumerate(self._mappings):
             n_s = len(sc.stamps[s])
             if n_s == 0:
                 continue
@@ -346,7 +428,7 @@ class MultiSequenceOdometry:
     def _fold(self, states, deltas):
         if not deltas:
             return states
-        S = len(self.mappings)
+        S = len(self._mappings)
         dR = np.broadcast_to(np.eye(3, dtype=np.float32), (S, 3, 3)).copy()
         dt = np.zeros((S, 3), np.float32)
         for s, d in deltas.items():
