@@ -209,9 +209,17 @@ Phases, each ending in torch.cuda.synchronize():
                 frac equal; the largest difference and whether the results
                 are bit-equal; the aggregate rate (two ranks on one card
                 are not a scaling measurement)
+ 29. examples — each of the port's five examples (`examples/*_torch.py`)
+                run in this process through its `main`, on cuda:0 and with
+                --device cpu: robust_line_fit, ekf_motion_analysis and
+                epipolar_lines print the same numbers on both to one unit
+                of their 4th decimal, loop_closure_scaling (EXAMPLE_SIZES
+                keyframes) the same query answers, with the card's rows
+                printed; dataset_analysis (numpy only) on a TUM file of
+                EXAMPLE_FRAMES poses; the kernel launches in the phase
 Every phase that runs a mapping backend (17, 18, 23-25, 27) fails on any
 warning of the "mapping" logger (its graceful degradation hides nothing).
-Phases 17-28 print their wall time. Phase 18's second half runs after
+Phases 17-29 print their wall time. Phase 18's second half runs after
 phase 21, on its frames and phase 20's: `odometry --format kitti` on a
 KITTI root of 8 pairs (host loop, --fused, --fused --mapping), and a
 repeated --dataset on two TUM directories (with and without --mapping) and
@@ -3803,6 +3811,84 @@ def _mesh_ranks(ref, suite_run, card, log):
         raise AssertionError(f"phase 28 (b): {failures}, pair gap {gap_pairs}, pose gap {gap_suite}")
 
 
+# phase 29: the port's examples
+EXAMPLE_SIZES = ("100", "300")  # loop_closure_scaling's database sizes
+EXAMPLE_FRAMES = 300  # dataset_analysis's trajectory
+
+
+def _example(name):
+    """The port's example ``examples/<name>_torch.py`` as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _printed(main, argv) -> str:
+    """What ``main(argv)`` prints."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue()
+
+
+def _fourth_places(text: str) -> list:
+    """The printed numbers in units of the 4th decimal."""
+    return [round(float(x) * 1e4) for x in re.findall(r"[-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?", text)]
+
+
+def _examples(card, log):
+    """Phase 29: each example's main on the card and with --device cpu;
+    the printed numbers agree to one unit of their 4th decimal, the loop
+    closure's answers exactly."""
+    import tempfile
+
+    from vslam_tpu_torch.core import lie_np
+    from vslam_tpu_torch.io import synthetic, tum
+
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/groundtruth.txt"
+        poses = synthetic.smooth_trajectory(EXAMPLE_FRAMES)
+        tum.write_trajectory(path, {i / 30.0: lie_np.inv(p) for i, p in enumerate(poses)})
+        text = _printed(_example("dataset_analysis").main, [path])
+    lines = text.splitlines()
+    log(f"phase 29 dataset_analysis on {EXAMPLE_FRAMES} poses: {' | '.join(lines)}")
+    if len(lines) != 5 or not lines[0].startswith(f"frames: {EXAMPLE_FRAMES} "):
+        raise AssertionError(f"phase 29 dataset_analysis printed {lines}")
+    failures = []
+    for name in ("robust_line_fit", "ekf_motion_analysis", "epipolar_lines"):
+        main = _example(name).main
+        t0 = time.perf_counter()
+        on_card = _printed(main, ["--device", "cuda:0"])
+        ms_card = 1e3 * (time.perf_counter() - t0)
+        on_cpu = _printed(main, ["--device", "cpu"])
+        a, b = _fourth_places(on_card), _fourth_places(on_cpu)
+        agree = len(a) == len(b) > 0 and all(abs(x - y) <= 1 for x, y in zip(a, b))
+        log(f"phase 29 {name}: card {' | '.join(on_card.splitlines())} ({ms_card:.1f} ms) {card}; cpu "
+            f"{' | '.join(on_cpu.splitlines())}; agree to the 4th decimal {agree}")
+        if not agree:
+            failures.append(name)
+    main = _example("loop_closure_scaling").main
+    on_card = _printed(main, [*EXAMPLE_SIZES, "--device", "cuda:0"]).splitlines()
+    on_cpu = _printed(main, [*EXAMPLE_SIZES, "--device", "cpu"]).splitlines()
+    for row in on_card:
+        log(f"phase 29 loop_closure_scaling on the card: {row} {card}")
+    answers = [[r.split()[0], *r.split()[3:]] for r in on_card[1:]]  # size, shortlist's, full scan's
+    if answers != [[r.split()[0], *r.split()[3:]] for r in on_cpu[1:]] or [a[0] for a in answers] != [*EXAMPLE_SIZES]:
+        failures.append(f"loop_closure_scaling: card {on_card[1:]}, cpu {on_cpu[1:]}")
+    launches = (*_launches(), *(getattr(k.module, k.counter) for k in _new_kernels().values()))
+    log(f"phase 29 kernel launches (quadratic, robust, sample, NE, mxu): {launches}; the examples run no aligner")
+    if failures:
+        raise AssertionError(f"phase 29: the card and the CPU disagree: {failures}")
+
+
 def _se3_matrix(R, t):
     """A pose's 4x4 f64 matrix, R re-orthonormalized by SVD (as the
     odometry's fetch does)."""
@@ -4105,6 +4191,11 @@ def main() -> int:
                                                   suite_streams, suite_run, card, log)
     _mesh_ranks(mesh_ref, suite_run, card, log)
     log(f"phase 28 took {time.perf_counter() - t0:.1f} s")
+
+    # 29. the port's examples, on the card and on the CPU
+    t0 = time.perf_counter()
+    _examples(card, log)
+    log(f"phase 29 took {time.perf_counter() - t0:.1f} s {card}")
     max_abs = max(max_abs, err_kitti, err_suite, err_slam, err_loop, err_mesh)
     max_abs_robust = max(max_abs_robust, err_drift, err_mesh)
     max_abs_robust = max(max_abs_robust, err_sizes["solve_level_fused_robust"])

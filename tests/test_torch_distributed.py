@@ -22,6 +22,9 @@ levels. Tolerances:
   (`tests/test_sequences.py`'s sharded tolerance) and within 1e-3 of JAX's
   sharded run (`tests/test_torch_sequences.py`'s); `sharded_scan_sequences`
   on one chunk within 1e-5 of the unsharded `scan_sequences`, `frac` exact;
+* a ragged (S, K) = (2, 2) chunk at 48x64 over 2 ranks, with one rank's
+  block all dead and with every rank live: `valid` equal to JAX's
+  `sharded_scan_sequences` on 2 virtual devices, `frac` exactly JAX's;
 * full SLAM sharded over 2 ranks (`tests/test_sequences.py::
   test_sharded_full_slam_with_loop_closure`'s gate): closures >= 1,
   anchored ATE <= 1.05 x online and < 0.05 m.
@@ -297,6 +300,62 @@ def test_sharded_scan_sequences_matches_scan_sequences(suite):
         np.testing.assert_allclose(r["scan"]["t"], poses.t[lo:hi].numpy(), atol=1e-5)
         np.testing.assert_array_equal(r["scan"]["valid"], valid[lo:hi].numpy())
         assert r["scan"]["frac"] == want_frac
+
+
+# one (S, K) = (2, 2) chunk at 48x64 over 2 ranks, a sequence a rank; the
+# live masks: rank 1's block all dead (JAX's frac 2 / (2 + 1), where a sum
+# clamped after the reduce would give 2 / 2), and a live slot on every rank
+RAGGED_H, RAGGED_W, RAGGED_FX = 48, 64, 55.0
+RAGGED_LIVES = {"one_rank_all_dead": [[True, True], [False, False]],
+                "every_rank_live": [[True, True], [True, False]]}
+JRAGGED_CFG = JSequentialConfig(
+    alignment=JAlignmentConfig(min_gradient=10.0, solver=JSolverConfig(max_iterations=50, min_step_size=1e-7),
+                               include_prior=True, prior_weight=(RAGGED_FX / 525.0) ** 2),
+    n_levels=2, kf_period=5)
+
+
+@pytest.fixture(scope="module")
+def ragged_chunk(tmp_path_factory):
+    """(JAX's (valid, frac) per live mask, the ranks' results)."""
+    cx, cy = (RAGGED_W - 1) / 2, (RAGGED_H - 1) / 2
+    K_small = synthetic.camera_matrix(RAGGED_FX, RAGGED_FX, cx, cy)
+    poses = synthetic.smooth_trajectory(3, trans_amp=0.08, rot_amp=0.03)
+    p0i = lie_np.inv(poses[0])
+    frames = [[synthetic.render(K_small, p @ p0i, (RAGGED_H, RAGGED_W), synthetic.default_scene(seed=s))
+               for p in poses] for s in range(2)]
+    arr = lambda k, sl: np.stack([np.stack([f[k] for f in seq[sl]]) for seq in frames]).astype(np.float32)  # noqa: E731
+    payload = {"cfg": dataclasses.asdict(JRAGGED_CFG), "cameras": [(RAGGED_FX, RAGGED_FX, cx, cy)] * 2,
+               "i0": arr(0, slice(0, 1))[:, 0], "d0": arr(1, slice(0, 1))[:, 0],
+               "intensity": arr(0, slice(1, 3)), "depth": arr(1, slice(1, 3)),
+               "dts": np.full((2, 2), DT_NS / 1e9, np.float32),
+               "lives": [np.asarray(v) for v in RAGGED_LIVES.values()]}
+    ranks = Ranks("scan_chunk", 2, payload, tmp_path_factory.mktemp("scan_chunk"))
+    jmesh = jbatched.make_mesh(_cpu_devices(2))
+    jcams = jmseq.stack_cameras([JCamera.create(RAGGED_FX, RAGGED_FX, cx, cy)] * 2)
+    step = jmseq.sharded_scan_sequences(jmesh, JRAGGED_CFG)
+    want = {}
+    for name, live in zip(RAGGED_LIVES, payload["lives"]):
+        states = jmseq.init_states(jnp.asarray(payload["i0"]), jnp.asarray(payload["d0"]), jcams, JRAGGED_CFG)
+        out = step(states, jnp.asarray(payload["intensity"]), jnp.asarray(payload["depth"]),
+                   jnp.asarray(payload["dts"]), jnp.asarray(live), jcams)
+        want[name] = (np.asarray(out[2]), float(out[5]))
+    return want, {name: [r[i] for r in ranks.results()] for i, name in enumerate(RAGGED_LIVES)}
+
+
+@pytest.mark.parametrize("case", list(RAGGED_LIVES))
+def test_sharded_scan_sequences_frac_matches_jax_on_a_ragged_chunk(ragged_chunk, case):
+    """Each rank clamps its own live count before the reduce, as the JAX
+    function does: ``frac`` equals JAX's exactly on every rank."""
+    want, got = ragged_chunk[0][case], ragged_chunk[1][case]
+    live = np.asarray(RAGGED_LIVES[case])
+    valid = np.concatenate([r["valid"] for r in got])
+    np.testing.assert_array_equal(valid, want[0])
+    assert valid[live].all()  # every live slot tracked: frac counts live slots only
+    assert {r["frac"] for r in got} == {want[1]}
+    n_live = live.sum(axis=1)
+    assert want[1] == np.float32(n_live.sum()) / np.float32(np.maximum(n_live, 1).sum())
+    if case == "one_rank_all_dead":
+        assert want[1] == np.float32(2.0) / np.float32(3.0)
 
 
 def test_multi_sequence_mesh_with_ragged_blocks(suite, tmp_path):

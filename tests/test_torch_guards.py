@@ -1,10 +1,14 @@
-"""Guards of the port's boundaries: it imports without JAX, its kernel
-wrappers never fall back silently, its entry points (the multi-GPU ones
-too) default to the card, and chip_smoke's last line keeps the contract's
-keys."""
+"""Guards of the port's boundaries: it (its examples too) imports without
+JAX, its kernel wrappers never fall back silently, its entry points (the
+multi-GPU ones and the examples too) default to the card, its public
+surface covers the JAX package's, its console script resolves, and
+chip_smoke's last line keeps the contract's keys."""
 
 import ast
 import dataclasses
+import importlib
+import importlib.util
+import inspect
 import os
 import re
 import pathlib
@@ -42,22 +46,35 @@ from vslam_tpu_torch.parallel.sequences import MultiSequenceOdometry
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "vslam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+PORT_FILES = sorted((ROOT / "vslam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
+
+
+def _load_example(path):
+    """An example script as a module (the examples are not a package)."""
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def test_port_imports_without_jax():
-    """Every port module (and chip_smoke) imports with jax and vslam_tpu
-    made unimportable, as on a machine that has no JAX."""
+    """Every port module, chip_smoke and every port example import with jax
+    and vslam_tpu made unimportable, as on a machine that has no JAX."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, importlib.util, pathlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['vslam_tpu'] = None\n"
         "import vslam_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vslam_tpu_torch.__path__, 'vslam_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "examples = sorted(pathlib.Path('examples').glob('*_torch.py'))\n"
+        "for p in examples:\n"
+        "    spec = importlib.util.spec_from_file_location(p.stem, p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'vslam_tpu.')) for k, v in sys.modules.items() if v is not None)\n"
-        "print(len(names))\n"
+        "print(len(examples), len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -67,6 +84,7 @@ def test_port_imports_without_jax():
     # backend's, the viewer's, the checkpoint's, the EXR and fixture readers
     # and the multi-GPU layer's (parallel.mesh, parallel.multihost) among them
     assert int(out.stdout.split()[-1]) >= 71
+    assert int(out.stdout.split()[-2]) == len(EXAMPLES) == 5
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -197,9 +215,8 @@ def _group_of_one(device, make):
             dist.destroy_process_group()
 
 
-def _render_boxes_batch_device() -> torch.Tensor:
-    """A tensor on the device `render_boxes_batch` renders on when none is
-    named (its images reach the caller as numpy)."""
+def _first_tensor_device(fn) -> torch.Tensor:
+    """A tensor on the device of the first tensor ``fn()`` makes."""
     from torch.overrides import TorchFunctionMode
 
     seen = []
@@ -212,8 +229,21 @@ def _render_boxes_batch_device() -> torch.Tensor:
             return out
 
     with Record():
-        synthetic.render_boxes_batch(np.eye(3), [np.eye(4)], (2, 3))
+        fn()
     return torch.zeros(1, device=seen[0])
+
+
+def _render_boxes_batch_device() -> torch.Tensor:
+    """A tensor on the device `render_boxes_batch` renders on when none is
+    named (its images reach the caller as numpy)."""
+    return _first_tensor_device(lambda: synthetic.render_boxes_batch(np.eye(3), [np.eye(4)], (2, 3)))
+
+
+def _example_device() -> torch.Tensor:
+    """A tensor on the device an example's ``main`` works on when given no
+    ``--device`` (it prints only host numbers)."""
+    example = _load_example(ROOT / "examples" / "robust_line_fit_torch.py")
+    return _first_tensor_device(lambda: example.main([]))
 
 
 def _cli_device() -> str:
@@ -250,12 +280,14 @@ def _cli_device() -> str:
         _render_boxes_batch_device,
         lambda: _group_of_one("cpu", lambda _: torch.zeros(1, device=mesh_lib.mesh_device(batched.make_mesh()))),
         lambda: _group_of_one(None, lambda dev: torch.zeros(1, device=dev)),
+        _example_device,
     ],
     ids=["Camera.create", "se3.identity", "ekf_se3.init", "stage_stream", "interop.camera_from_numpy",
          "interop.se3_from_numpy", "interop.frame_from_numpy", "interop.level_data_from_numpy",
          "interop.level_data_tuple_from_numpy", "interop.ekf_state_from_numpy", "OdometryPipeline",
          "evaluate --device", "KittiDataset", "MultiSequenceOdometry", "RgbdAlignerFa", "IcpAligner",
-         "ChunkMappingBackend", "render_boxes_batch", "make_mesh", "multihost.initialize"],
+         "ChunkMappingBackend", "render_boxes_batch", "make_mesh", "multihost.initialize",
+         "examples/robust_line_fit_torch.main"],
 )
 def test_entry_points_default_to_the_card(make):
     """With no device named, an entry point puts its tensors on CUDA, and
@@ -384,6 +416,87 @@ def test_mapping_options_checked():
         MultiSequenceOdometry([Camera.create(1.0, 1.0, 0.0, 0.0, device="cpu")] * 2,
                               mappings=[ChunkMappingBackend(device="cpu")])
     assert ChunkMappingBackend(device="cpu", compute_device="auto").compute_device == torch.device("cpu")
+
+
+# what the port leaves out by decision (ROADMAP "Not ported"), as names
+# relative to the package root
+NOT_PORTED = {
+    "utils.platform",  # interpret mode off the TPU; the wrappers pick by device
+    "utils.profiling.cost_analysis",  # XLA's static cost model
+    "utils.profiling.tpu_peaks",
+    "utils.profiling.banded_segments_from_data",  # the Pallas kernel's bands
+    "utils.profiling.fused_align_flops",  # the one-hot formulation's FLOPs
+    "alignment.fused_ne.pack_level",  # the 8xC tile layout
+    "alignment.fused_ne.FusedLevelPack",
+    "alignment.fused_ne._BAND",
+    "ba.pose_graph.optimize_pose_graph_jit",  # a jax.jit wrapper
+}
+JAX_MODULES = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+                     for p in (ROOT / "vslam_tpu").rglob("*.py"))
+
+
+def _relative(module: str, name: str = "") -> str:
+    return ".".join(x for x in (module.partition(".")[2], name) if x)
+
+
+def _public(module) -> set:
+    """``__all__``, or where a module has none, the functions and classes
+    it defines under public names."""
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    return {k for k, v in vars(module).items() if not k.startswith("_") and (inspect.isfunction(v) or
+            inspect.isclass(v)) and v.__module__ == module.__name__}
+
+
+@pytest.mark.parametrize("name", JAX_MODULES)
+def test_port_surface_covers_the_jax_package(name):
+    """Every module and subpackage of the JAX package (the root included)
+    has its port, whose public names (``__all__`` where the JAX module has
+    one) hold the JAX module's, minus what is not ported by decision; every
+    name the port's ``__all__`` lists resolves."""
+    if _relative(name) in NOT_PORTED:
+        return
+    jax_module = importlib.import_module(name)
+    port = importlib.import_module("vslam_tpu_torch" + name[len("vslam_tpu"):])
+    want = {n for n in _public(jax_module) if _relative(name, n) not in NOT_PORTED}
+    have = set(port.__all__) if hasattr(jax_module, "__all__") else {n for n in want if hasattr(port, n)}
+    assert want <= have, sorted(want - have)
+    assert all(hasattr(port, n) for n in getattr(port, "__all__", ())), name
+
+
+def test_not_ported_names_exist_only_in_the_jax_package():
+    """Each entry of NOT_PORTED names something of the JAX package that the
+    port lacks, so the list cannot hide a name that was ported since."""
+
+    def resolves(package: str, relative: str) -> bool:
+        parts = relative.split(".")
+        for i in range(len(parts), 0, -1):
+            try:
+                obj = importlib.import_module(".".join([package, *parts[:i]]))
+            except ImportError:
+                continue
+            for attr in parts[i:]:
+                if not hasattr(obj, attr):
+                    return False
+                obj = getattr(obj, attr)
+            return True
+        return False
+
+    for relative in sorted(NOT_PORTED):
+        assert resolves("vslam_tpu", relative), relative
+        assert not resolves("vslam_tpu_torch", relative), relative
+
+
+def test_console_scripts_name_both_clis():
+    """``vslam-run-torch`` runs the port's CLI; ``vslam-run`` still names the
+    JAX package's."""
+    import tomllib
+
+    scripts = tomllib.loads((ROOT / "pyproject.toml").read_text())["project"]["scripts"]
+    assert scripts["vslam-run"] == "vslam_tpu.eval.evaluate:main"
+    module, _, attr = scripts["vslam-run-torch"].partition(":")
+    assert getattr(importlib.import_module(module), attr) is evaluate.main
+    assert module == "vslam_tpu_torch.eval.evaluate"
 
 
 def test_chip_smoke_result_line_keeps_the_contract():

@@ -184,6 +184,25 @@ def suite(rank, world, payload):
                      "frac": float(out[5])}}
 
 
+def scan_chunk(rank, world, payload):
+    """`sharded_scan_sequences` on this rank's block of one (S, K) chunk,
+    once for each of the payload's live masks: (valid, frac) of each."""
+    from vslam_tpu_torch.parallel import batched, sequences
+
+    cfg, cams = _suite_inputs(payload)
+    mesh = batched.make_mesh(device="cpu")
+    i0, d0, inten, depth, dts, cameras = batched.shard_batch(
+        (payload["i0"], payload["d0"], payload["intensity"], payload["depth"], payload["dts"],
+         sequences.stack_cameras(cams, "cpu")), mesh)
+    step = sequences.sharded_scan_sequences(mesh, cfg)
+    out = []
+    for live in payload["lives"]:
+        states = sequences.init_states(i0, d0, cameras, cfg)
+        got = step(states, inten, depth, dts, batched.shard_batch(live, mesh), cameras)
+        out.append({"valid": got[2].numpy(), "frac": float(got[5])})
+    return out
+
+
 def slam(rank, world, payload):
     """Full SLAM sharded one sequence a rank: the trajectories of all S,
     and this rank's backend's closures and anchored trajectory."""

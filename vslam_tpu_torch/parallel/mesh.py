@@ -98,12 +98,11 @@ def all_reduce_sum(values: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Ten
     return out
 
 
-def global_fraction(n_ok: torch.Tensor, n, mesh, axes: Sequence[str], clamp: bool = False) -> torch.Tensor:
+def global_fraction(n_ok: torch.Tensor, n, mesh, axes: Sequence[str]) -> torch.Tensor:
     """Σ n_ok / Σ n over the mesh in f32, both counts in one tensor so one
-    collective a mesh axis serves; ``n`` a tensor or a number. ``clamp``
-    divides by max(Σ n, 1). A 0-dim tensor on ``n_ok``'s device, the same
-    on every rank."""
+    collective a mesh axis serves; ``n`` a tensor or a number. A 0-dim
+    tensor on ``n_ok``'s device, the same on every rank."""
     n_ok = n_ok.to(torch.float32)
     n = n.to(torch.float32) if torch.is_tensor(n) else torch.full_like(n_ok, float(n))
     counts = all_reduce_sum(torch.stack((n_ok, n)), mesh, axes)
-    return counts[0] / (counts[1].clamp(min=1.0) if clamp else counts[1])
+    return counts[0] / counts[1]

@@ -126,15 +126,15 @@ def sharded_scan_sequences(mesh, cfg: SequentialConfig, axis: str = "data"):
     ``(states, intensity, depth, dt, live, cameras)`` on this rank's block
     of the S sequences (`scan_sequences`' arguments) returning ``(states,
     poses, valid, cov, is_kf, frac)``. ``frac``, the chunk's tracking
-    health, is Σ(valid & live) / max(Σ live, 1) over the whole mesh from one
-    `all_reduce`, the same on every rank (the JAX function clamps each
-    device's live count before the sum; the two agree wherever every
-    device has a live slot)."""
+    health, is Σ(valid & live) / Σ max(live count, 1) over the whole mesh
+    from one `all_reduce`, the same on every rank: each rank clamps its own
+    live count before the sum, as the JAX function does."""
     mesh_lib.axis_index(mesh, axis)
 
     def step(states, intensity, depth, dt, live, cameras):
         states, poses, valid, cov, is_kf = scan_sequences(states, intensity, depth, dt, live, cameras, cfg)
-        frac = mesh_lib.global_fraction(*_valid_counts(valid, live), mesh, (axis,), clamp=True)
+        n_ok, n = _valid_counts(valid, live)
+        frac = mesh_lib.global_fraction(n_ok, n.clamp(min=1), mesh, (axis,))
         return states, poses, valid, cov, is_kf, frac
 
     return step
@@ -161,7 +161,10 @@ class MultiSequenceOdometry:
         1-D `DeviceMesh` with its axis named "data" (`batched.make_mesh`);
         S must split into equal blocks over it, and the block runs on the
         rank's device. ``fracs`` then holds each chunk's global valid
-        fraction of the last run."""
+        fraction of the last run, by a rule of its own (the JAX driver
+        discards the value): Σ valid live slots / max(Σ live slots, 1) over
+        the mesh, so a rank with no live slot adds nothing to the
+        denominator, unlike `sharded_scan_sequences`' ``frac``."""
         cameras = list(cameras)
         self.mesh = mesh
         self._block = range(len(cameras))  # the sequences this process runs

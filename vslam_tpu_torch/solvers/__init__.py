@@ -2,7 +2,7 @@
 
 from . import gauss_newton, linalg6, loss, normal_equations
 from .gauss_newton import SolverConfig, SolverResult, solve_gauss_newton, solve_levenberg_marquardt
-from .loss import LossConfig
+from .loss import LossConfig, Scale, compute_scale, compute_weights
 from .normal_equations import NormalEquations
 
 __all__ = [
@@ -15,5 +15,8 @@ __all__ = [
     "solve_gauss_newton",
     "solve_levenberg_marquardt",
     "LossConfig",
+    "Scale",
+    "compute_scale",
+    "compute_weights",
     "NormalEquations",
 ]

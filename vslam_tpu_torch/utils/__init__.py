@@ -1,9 +1,10 @@
 """Small helpers shared across the port."""
 
 from . import log, timer
+from .log import get_logger, log_img
 from .tree import tree_map
 
-__all__ = ["log", "timer", "tree_map", "pow2_bucket"]
+__all__ = ["log", "timer", "tree_map", "pow2_bucket", "get_logger", "log_img"]
 
 
 def pow2_bucket(n: int, minimum: int = 8) -> int:
