@@ -7,8 +7,9 @@ Phases, each ending in torch.cuda.synchronize():
                 power limit as nvidia-smi reports them
   2. build    — nvcc-builds the kernels from vslam_tpu_torch/csrc, and
                 beside them the sweeps' variants (the whole-level kernel at
-                each CTA count of CTAS_TRIED, and RESIDUAL_SWEEPS), one nvcc
-                each, all started together
+                each CTA count of CTAS_TRIED, and RESIDUAL_SWEEPS) and the
+                mxu kernel's split stages (MXU_STAGES), one nvcc each, all
+                started together
   3. kernel   — the whole-level GN kernel's quadratic entry against its plain
                 PyTorch version on the same tensors: 64 rendered 480x640
                 pairs, finest level, four cases (F=1 nearest bf16, F=1
@@ -75,7 +76,10 @@ Phases, each ending in torch.cuda.synchronize():
                 is the chosen one
  15. mxu      — the mxu kernel against grid_sample at phase 10's level
                 inputs in alternation (kernel, grid_sample, grid_sample,
-                kernel; MXU_ROUNDS rounds) with the spread of each
+                kernel; MXU_ROUNDS rounds) with the spread of each; then
+                its split at each level: an empty kernel on its grid, the
+                coordinates alone, the full kernel (builds of the source
+                at each kMxuStage), beside the launch floor
  16. residual sweep — the NE kernel at each CTA count of NE_CTAS_TRIED
                 (at every frame size) and each count of points in flight of
                 NE_IN_FLIGHT_TRIED, beside the package's build (its cluster
@@ -1469,6 +1473,8 @@ RESIDUAL_SWEEPS = {
     "fused_level_sample": [{"kSamplePts": p} for p in SAMPLE_PTS_TRIED],
 }
 MXU_ROUNDS = 5
+# phase 15's split of the mxu kernel: the source built at each kMxuStage
+MXU_STAGES = {0: "empty grid", 1: "coordinates alone", 2: "full kernel"}
 
 
 def _source_constant(source: str, name: str) -> int:
@@ -1483,13 +1489,15 @@ def _variant_key(stem: str, constants: dict):
 
 def _start_variants():
     """Start the nvcc of the variants the sweeps measure (one process each,
-    all together): the whole-level kernel at each CTA count of CTAS_TRIED
-    and each build of RESIDUAL_SWEEPS, but those whose constants are all
-    the source's own. Returns (`_build.Variants`, their keys)."""
+    all together): the whole-level kernel at each CTA count of CTAS_TRIED,
+    each build of RESIDUAL_SWEEPS and the mxu kernel at each of MXU_STAGES,
+    but those whose constants are all the source's own. Returns
+    (`_build.Variants`, their keys)."""
     from vslam_tpu_torch import _build
 
     specs = [("fused_solve", {"kCtas": c}) for c in CTAS_TRIED]
     specs += [("fused_ne", v) for variants in RESIDUAL_SWEEPS.values() for v in variants]
+    specs += [("sample_mxu", {"kMxuStage": stage}) for stage in MXU_STAGES]
     keys, todo = [], []
     for stem, constants in specs:
         key = _variant_key(stem, constants)
@@ -1647,6 +1655,39 @@ def _mxu_alternated(by_width, card, log):
             f"{km * 1e3:.3f} us (spread {kspread * 1e3:.3f}), grid_sample {gm * 1e3:.3f} us (spread "
             f"{gspread * 1e3:.3f}), {MXU_ROUNDS} rounds kernel,grid_sample,grid_sample,kernel: the kernel "
             f"is {verdict} grid_sample {card}")
+    return out
+
+
+def _mxu_split(by_width, builds, label, card, log):
+    """Where the mxu kernel's time goes at each level of the `align_pairs`
+    mxu run (``by_width``, {width: args}): device ms (profiler, 20
+    launches, best of two runs in turns) of the builds of one design at
+    each of MXU_STAGES, and of any further measurement builds (``builds``,
+    {name: C entries}, MXU_STAGES' names first; None for the package's),
+    beside the launch floor (a one-element zero_() in the same window) and
+    the bound. Returns {width: {name: ms}}."""
+    import torch
+
+    from vslam_tpu_torch.alignment import pallas_kernels as pk
+
+    out = {}
+    for width, args in sorted(by_width.items(), reverse=True):
+        img, u, _ = args
+        one = torch.zeros(1, device=img.device)
+        runs = [(lambda lib: lambda: pk._launch(*args, lib=lib))(lib) for lib in builds.values()]
+        runs.append(one.zero_)
+        order = list(range(len(runs))) + list(range(len(runs)))[::-1]
+        ms = _device_ms_batch([(runs[i], 20, "sample_mxu_kernel" if i < len(builds) else None) for i in order])
+        best = [min(m for i, m in zip(order, ms) if i == k) for k in range(len(runs))]
+        out[width] = dict(zip(builds, best))
+        t = out[width]
+        empty, coords, full = (t[name] for name in MXU_STAGES.values())
+        bound_ms, by = _bound(*_mxu_work(args, None))
+        log(f"mxu split {label}, {img.shape[-2]}x{width} level ({u.shape[1]} points per pair, B={u.shape[0]}): "
+            + ", ".join(f"{name} {m * 1e3:.3f} us" for name, m in t.items())
+            + f" (best of 2 in turns); launch floor {best[-1] * 1e3:.3f} us; the coordinates "
+            f"{(coords - empty) * 1e3:.3f} us above the grid, the sampling {(full - coords) * 1e3:.3f} us above "
+            f"the coordinates; bound {bound_ms * 1e3:.3f} us ({by}) {card}")
     return out
 
 
@@ -4092,8 +4133,11 @@ def main() -> int:
     _solve_sweep({"align_pairs": pairs_inputs, "odometry profile": profile_times["odometry"][5],
                   "robust profile": robust_inputs}, variant_libs, card, log)
 
-    # 15. kernel 4 against grid_sample in alternation
+    # 15. kernel 4 against grid_sample in alternation, and its split
     _mxu_alternated(captured["bilinear_sample_mxu"], card, log)
+    _mxu_split(captured["bilinear_sample_mxu"],
+               {name: variant_libs.get(_variant_key("sample_mxu", {"kMxuStage": s})) for s, name in MXU_STAGES.items()},
+               "this version", card, log)
 
     # 16. the NE kernel's CTA count and points in flight, the sampler's points per thread
     _residual_sweep(captured, variant_libs, card, log)

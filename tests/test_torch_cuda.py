@@ -550,6 +550,54 @@ def test_mxu_kernel_with_ragged_and_unaligned_points(device, M, offset):
     torch.testing.assert_close(got, pallas_kernels.bilinear_sample_mxu_plain(img, u, v), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize(
+    "B,M,h,w,image_offset",
+    [(64, 1920, 480, 640, 0), (64, 480, 240, 320, 0), (64, 120, 120, 160, 0),  # align_pairs' levels
+     (70_000, 4, 6, 8, 0),  # more pairs than the grid's y extent
+     (5, 1, 60, 80, 0), (5, 33, 60, 80, 0),
+     (3, 100, 31, 33, 1), (3, 100, 31, 33, 2)],  # rows and images off a 16-byte boundary
+    ids=["level0-480x640", "level1-240x320", "level2-120x160", "70000-pairs", "M1", "M33",
+         "image-4-bytes-off", "image-8-bytes-off"])
+def test_mxu_kernel_launch_shapes(device, B, M, h, w, image_offset):
+    """The launch shapes of the 2-D grid: the three `align_pairs` mxu
+    levels (B = 64), more pairs than the y extent of 65,535 (a block then
+    also takes the pairs 65,535 apart), one and 33 points a pair, and
+    images whose rows and bases are off a 16-byte boundary (the taps'
+    addresses 4-byte aligned alone): bit for bit, one launch each."""
+    rng = np.random.default_rng(B + M + image_offset)
+    pixels = rng.uniform(0, 255, B * h * w + image_offset).astype(np.float32)
+    img = torch.as_tensor(pixels, device=device)[image_offset:].view(B, h, w)
+    u = torch.as_tensor(rng.uniform(-3, w + 2, (B, M)).astype(np.float32), device=device)
+    v = torch.as_tensor(rng.uniform(-3, h + 2, (B, M)).astype(np.float32), device=device)
+    before = pallas_kernels.MXU_LAUNCHES
+    got = pallas_kernels.bilinear_sample_mxu(img, u, v)
+    want = pallas_kernels.bilinear_sample_mxu_plain(img, u, v)
+    torch.cuda.synchronize()
+    assert pallas_kernels.MXU_LAUNCHES == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert bool((got[-1] != 0).any())  # the last pairs are sampled too
+
+
+def test_mxu_kernel_at_special_coordinates(device):
+    """NaN, +-inf and coordinates exactly on and just past the border (-1,
+    W-1 and W; -1, H-1 and H) with every other such value: bit for bit,
+    NaN where the plain version gives NaN."""
+    nan, inf = float("nan"), float("inf")
+    us = [nan, inf, -inf, -1.0, -0.5, 0.0, 0.5, W - 1.5, W - 1.0, W - 0.5, W]
+    vs = [nan, inf, -inf, -1.0, -0.5, 0.0, 0.5, H - 1.5, H - 1.0, H - 0.5, H]
+    rng = np.random.default_rng(7)
+    B = 2
+    img = torch.as_tensor(rng.uniform(1, 255, (B, H, W)).astype(np.float32), device=device)
+    grid_u, grid_v = np.meshgrid(np.array(us, np.float32), np.array(vs, np.float32))
+    u = torch.as_tensor(grid_u.ravel(), device=device).expand(B, -1).contiguous()
+    v = torch.as_tensor(grid_v.ravel(), device=device).expand(B, -1).contiguous()
+    got = pallas_kernels.bilinear_sample_mxu(img, u, v)
+    want = pallas_kernels.bilinear_sample_mxu_plain(img, u, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(got).any()) and bool((got == 0).any()) and bool((got > 0).any())
+
+
 def test_align_pairs_per_iteration_samplers_launch_every_iteration(device):
     from vslam_tpu_torch.parallel.batched import align_pairs
 

@@ -94,6 +94,21 @@ def test_mxu_wrapper_forms_on_cpu():
         pallas_kernels.bilinear_sample_mxu(img.to(torch.bfloat16), u, v)
 
 
+@pytest.mark.parametrize("h,w,refused", [(2**16, 2**15, True), (1, 2**31 - 1, False)],
+                         ids=["2^31-pixels", "2^31-1-pixels"])
+def test_mxu_kernel_refuses_images_of_2_31_pixels(h, w, refused):
+    """The kernel addresses a tap by its 32-bit offset in the image: its
+    launcher refuses an image of 2^31 pixels or more before it builds or
+    launches anything, and goes on to its device checks below that (meta
+    tensors: no memory, no card)."""
+    img = torch.empty(1, h, w, device="meta")
+    uv = torch.empty(1, 8, device="meta")
+    before = pallas_kernels.MXU_LAUNCHES
+    with pytest.raises(ValueError, match=r"2\^31" if refused else "CUDA"):
+        pallas_kernels.bilinear_sample_mxu(img, uv, uv)
+    assert pallas_kernels.MXU_LAUNCHES == before
+
+
 BASE = JAlignmentConfig(
     min_gradient=10.0,
     solver=JSolverConfig(max_iterations=30, min_step_size=1e-11, min_relative_reduction=1e-4),

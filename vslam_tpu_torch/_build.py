@@ -150,26 +150,29 @@ def library() -> types.SimpleNamespace:
 
 class Variants:
     """Libraries of single sources with design constants replaced: each
-    spec is (source stem, {constexpr name: value}). The nvcc processes start
-    at construction, all together; `load()` waits for them and returns one
-    entry namespace per spec."""
+    spec is (source, {constexpr name: value}), the source a stem of
+    `csrc/` or the path of another tree's `.cu` file (its own directory
+    searched for includes). The nvcc processes start at construction, all
+    together; `load()` waits for them and returns one entry namespace per
+    spec."""
 
     def __init__(self, specs):
         nvcc = _nvcc()
         out_dir = BUILD_DIR / "variants"
         out_dir.mkdir(parents=True, exist_ok=True)
         self._jobs = []
-        for stem, constants in specs:
-            text = (SRC_DIR / f"{stem}.cu").read_text()
+        for i, (source, constants) in enumerate(specs):
+            path = Path(source) if isinstance(source, Path) else SRC_DIR / f"{source}.cu"
+            text = path.read_text()
             for name, value in constants.items():
                 text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {int(value)};", text)
                 if n != 1:
-                    raise ValueError(f"{stem}.cu has no single 'constexpr int {name} = ...;'")
-            tag = "_".join(f"{k}{v}" for k, v in constants.items())
-            src = out_dir / f"{stem}_{tag}.cu"
+                    raise ValueError(f"{path.name} has no single 'constexpr int {name} = ...;'")
+            tag = "_".join([path.stem, str(i)] + [f"{k}{v}" for k, v in constants.items()])
+            src = out_dir / f"{tag}_{os.getpid()}.cu"
             src.write_text(text)
-            lib = out_dir / f"libvslam_{stem}_{tag}_{os.getpid()}.so"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(lib), str(src)]
+            lib = out_dir / f"libvslam_{tag}_{os.getpid()}.so"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(path.parent), "-o", str(lib), str(src)]
             self._jobs.append((lib, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                           stderr=subprocess.STDOUT, text=True)))
 

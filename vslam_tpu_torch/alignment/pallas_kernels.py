@@ -13,7 +13,8 @@ and each sample is (wy0 i00 + wy1 i10) wx0 + (wy0 i01 + wy1 i11) wx1.
 * `bilinear_sample_mxu_plain`, the plain PyTorch twin, on any device.
 
 The wrapper takes the twin for CPU tensors and, for any other device,
-launches the kernel or raises.
+launches the kernel or raises; it refuses images of 2^31 pixels or more,
+which the kernel's 32-bit tap offsets cannot address.
 """
 
 from __future__ import annotations
@@ -62,12 +63,21 @@ def bilinear_sample_mxu_plain(img: torch.Tensor, u: torch.Tensor, v: torch.Tenso
     return (wy0 * i00 + wy1 * i10) * wx0 + (wy0 * i01 + wy1 * i11) * wx1
 
 
-def _launch(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+# the kernel addresses a tap by its 32-bit offset in its image
+MAX_IMAGE_PIXELS = 2**31 - 1
+
+
+def _launch(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, lib=None) -> torch.Tensor:
+    """The kernel's launch; ``lib`` another build's C entries (a design
+    variant or an earlier version, for measurements), by default the
+    package's."""
     global MXU_LAUNCHES
     from .._build import library
 
     B, H, W = img.shape
     M = u.shape[-1]
+    if H * W > MAX_IMAGE_PIXELS:
+        raise ValueError(f"image of {H}x{W} = {H * W} pixels: the kernel takes fewer than 2^31")
     img = img.contiguous()  # a pyramid level may be a strided view
     _checked("u", u, (B, M), torch.float32)
     _checked("v", v, (B, M), torch.float32)
@@ -77,7 +87,7 @@ def _launch(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     out = torch.empty(B, M, dtype=torch.float32, device=img.device)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = library().vslam_bilinear_sample_mxu(
+        err = (lib or library()).vslam_bilinear_sample_mxu(
             *(ctypes.c_void_p(t.data_ptr()) for t in (img, u, v)),
             *(ctypes.c_int(x) for x in (B, M, H, W)),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
