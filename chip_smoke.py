@@ -221,9 +221,18 @@ Phases, each ending in torch.cuda.synchronize():
                 keyframes) the same query answers, with the card's rows
                 printed; dataset_analysis (numpy only) on a TUM file of
                 EXAMPLE_FRAMES poses; the kernel launches in the phase
+ 30. bench    — `python -m vslam_tpu_torch.bench` in a subprocess with the
+                sub-benches of BENCH_OFF switched off (their paths run in
+                phases 17, 20, 21, 24 and 25): exit 0, the expected keys
+                and no `_error` or `_skipped` key, no rate of 0.0, the card
+                as nvidia-smi names it, the whole-level kernel launched;
+                the line and the phase's time logged;
+                before it, the host's waits for the card in one headline
+                call and in the rep loop (torch's sync debug mode); the
+                subprocess's launches join the kernel line's counts
 Every phase that runs a mapping backend (17, 18, 23-25, 27) fails on any
 warning of the "mapping" logger (its graceful degradation hides nothing).
-Phases 17-29 print their wall time. Phase 18's second half runs after
+Phases 17-30 print their wall time. Phase 18's second half runs after
 phase 21, on its frames and phase 20's: `odometry --format kitti` on a
 KITTI root of 8 pairs (host loop, --fused, --fused --mapping), and a
 repeated --dataset on two TUM directories (with and without --mapping) and
@@ -3930,6 +3939,90 @@ def _examples(card, log):
         raise AssertionError(f"phase 29: the card and the CPU disagree: {failures}")
 
 
+# phase 30: the port's bench as a user runs it. Phases 24-25 drive the
+# slam_drift and kitti_loop paths, and phases 21, 17 and 20 the suite, the
+# pipeline and KITTI: those sub-benches are switched off by their own
+# variables to keep the phase near BENCH_LIMIT_S (the whole line took
+# 211-251 s on the H100, 38-42 s of it each loop gate and 18-24 s each of
+# the other three; PERF.md, PR 16).
+BENCH_OFF = ("BENCH_SLAM_DRIFT", "BENCH_KITTI_LOOP", "BENCH_MULTISEQ", "BENCH_HOST", "BENCH_KITTI")
+BENCH_LIMIT_S = 150  # the phase's target, logged beside its time
+BENCH_TIMEOUT_S = 400  # the subprocess's wall limit
+# the keys each sub-bench adds to the line when its gates pass
+BENCH_KEYS = {
+    None: ("metric", "value", "unit", "vs_baseline", "methodology", "device", "link_rtt_ms", "link_up_mbytes_per_s"),
+    "BENCH_ODOMETRY": ("odometry_fps", "odometry_stream_fps", "odometry_ate_m", "odometry_fps_vs_realtime_30hz"),
+    "BENCH_SLAM_DRIFT": ("slam_drift_odo_ate_m", "slam_drift_ate_m", "slam_drift_online_ate_m",
+                         "slam_drift_closures", "slam_drift_win"),
+    "BENCH_SLAM": ("slam_fps", "slam_stream_fps", "slam_ate_m", "slam_mapping_off_ate_m", "slam_fps_vs_realtime_30hz"),
+    "BENCH_MULTISEQ": ("multiseq_fps", "multiseq_stream_fps", "multiseq_seqs", "multiseq_max_ate_m"),
+    "BENCH_KITTI": ("kitti_fps", "kitti_stream_fps", "kitti_ate_m", "kitti_fps_vs_realtime_10hz"),
+    "BENCH_KITTI_LOOP": ("kitti_loop_odo_ate_m", "kitti_loop_ate_m", "kitti_loop_online_ate_m",
+                         "kitti_loop_closures", "kitti_loop_frames", "kitti_loop_win"),
+    "BENCH_HOST": ("host_fps", "host_ate_m", "host_fps_vs_10fps"),
+}
+
+
+def _bench(pairs, smi, card, log):
+    """Phase 30: the host's waits for the card inside one headline call and
+    inside `honest_loop` (2 reps) at phase 5's pairs, then `python -m
+    vslam_tpu_torch.bench` in a subprocess with BENCH_OFF switched off:
+    exit 0 within BENCH_TIMEOUT_S, the expected keys and no other, no rate
+    of 0.0 (a failed gate), the card named as nvidia-smi names it, the
+    whole-level kernel launched; its time logged beside BENCH_LIMIT_S.
+    Returns the subprocess's launches of each kernel."""
+    import os
+    from pathlib import Path
+
+    import torch
+
+    from vslam_tpu_torch import bench
+    from vslam_tpu_torch.parallel.batched import align_pairs
+
+    ref, cur, rel0, x_pred, xis, cfg = pairs
+    _, waits_call = _host_waits(lambda: align_pairs(ref, cur, rel0, x_pred, cfg))
+    _, waits_loop = _host_waits(lambda: bench.honest_loop(bench.PairBatch(ref, cur, rel0, x_pred, xis), cfg, 2))
+    _sync()
+    log(f"phase 30 host waits for the card (torch's sync debug mode): {waits_call} in one align_pairs call of "
+        f"{len(xis)} pairs, {waits_loop} in honest_loop's 2 reps {card}")
+
+    torch.cuda.empty_cache()
+    env = dict(os.environ, **{switch: "0" for switch in BENCH_OFF})
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "vslam_tpu_torch.bench"], cwd=Path(__file__).resolve().parent,
+                         env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in out.stderr.splitlines():
+        if "took" in line or "gate" in line or "headline" in line or "FAILED" in line or "SKIPPED" in line:
+            log(f"phase 30 bench: {line}")
+    if out.returncode != 0 or not out.stdout.strip():
+        raise AssertionError(f"phase 30: the bench exited {out.returncode}; stdout {out.stdout[-2000:]!r}; "
+                             f"stderr {out.stderr[-4000:]}")
+    result = json.loads(out.stdout.splitlines()[-1])
+    counts = [json.loads(line.split("kernel launches ", 1)[1]) for line in out.stderr.splitlines()
+              if line.startswith("bench: kernel launches ")]
+    launches = counts[-1] if counts else {}
+    log(f"phase 30 bench line (sub-benches off: {', '.join(BENCH_OFF)}): {json.dumps(result)}")
+    log(f"phase 30 bench: {wall:.1f} s in the subprocess (limit {BENCH_LIMIT_S} s), kernel launches {launches} "
+        f"{card}")
+    want = {k for switch, keys in BENCH_KEYS.items() if switch not in BENCH_OFF for k in keys}
+    faults = []
+    if set(result) != want:
+        faults.append(f"keys missing {sorted(want - set(result))}, unexpected {sorted(set(result) - want)}")
+    zero = [k for k in result if (k == "value" or k.endswith("_fps")) and result[k] == 0.0]
+    if zero:
+        faults.append(f"rates of 0.0 (failed gates): {zero}")
+    if result.get("device") != smi:
+        faults.append(f"device {result.get('device')!r}, the card is {smi!r}")
+    if not (result.get("slam_drift_win", True) and result.get("kitti_loop_win", True)):
+        faults.append("a loop gate failed")
+    if launches.get("solve_level_fused", 0) <= 0:
+        faults.append(f"the whole-level kernel was not launched: {launches}")
+    if faults:
+        raise AssertionError(f"phase 30: {'; '.join(faults)}")
+    return launches
+
+
 def _se3_matrix(R, t):
     """A pose's 4x4 f64 matrix, R re-orthonormalized by SVD (as the
     odometry's fetch does)."""
@@ -4240,11 +4333,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _examples(card, log)
     log(f"phase 29 took {time.perf_counter() - t0:.1f} s {card}")
+
+    # 30. the port's bench, as a user runs it
+    t0 = time.perf_counter()
+    launches_bench = _bench((frames["ref"], frames["cur"], rel0, x_pred, xis, cfg), smi, card, log)
+    log(f"phase 30 took {time.perf_counter() - t0:.1f} s {card}")
     max_abs = max(max_abs, err_kitti, err_suite, err_slam, err_loop, err_mesh)
     max_abs_robust = max(max_abs_robust, err_drift, err_mesh)
     max_abs_robust = max(max_abs_robust, err_sizes["solve_level_fused_robust"])
     err_new["fused_level_sample"] = max(err_new["fused_level_sample"], err_sizes["fused_level_sample"])
-    for name, n in launches_pipe.items():
+    for name, n in (*launches_pipe.items(), *launches_bench.items()):
         if name in launches_new:
             launches_new[name] += n
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4256,7 +4354,8 @@ def main() -> int:
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:533",
         "launches": launches_pairs[0] + launches_odo["odometry"] + launches_pipe["solve_level_fused"]
-        + launches_kitti + launches_suite + launches_slam + launches_loop + launches_viewer + launches_mesh[0],
+        + launches_kitti + launches_suite + launches_slam + launches_loop + launches_viewer + launches_mesh[0]
+        + launches_bench["solve_level_fused"],
         "max_abs_err": max_abs,
         "ms": sum(ms_k.values()),
         "plain_ms": sum(ms_p.values()),
@@ -4269,7 +4368,8 @@ def main() -> int:
         "source": "vslam_tpu_torch/csrc/fused_solve.cu",
         "replaces": "vslam_tpu/alignment/fused_solve.py:520",
         "launches": launches_track[1] + launches_odo["robust"] + robust_vlog
-        + launches_pipe["solve_level_fused_robust"] + launches_drift + launches_mesh[1],
+        + launches_pipe["solve_level_fused_robust"] + launches_drift + launches_mesh[1]
+        + launches_bench["solve_level_fused_robust"],
         "max_abs_err": max_abs_robust,
         "ms": sum(ms_k_robust.values()),
         "plain_ms": sum(ms_p_robust.values()),
