@@ -53,6 +53,7 @@ from ..solvers.linalg6 import inv_psd
 from ..solvers import loss as loss_mod
 from ..solvers.loss import LossConfig
 from ..solvers.normal_equations import NormalEquations
+from ..utils import timer
 
 __all__ = [
     "AlignmentConfig",
@@ -175,38 +176,39 @@ def precompute_level(
 
     Images are (*L, H, W) with any leading axes L; camera leaves have a
     prefix of L as their shape. Outputs have leading axes L and a point axis
-    P = H * W (dense) or the compact capacity."""
-    H, W = intensity.shape[-2:]
-    batch = intensity.shape[:-2]
-    cam = cam_mod.expand(cam, len(batch))
-    if max_points and max_points < H * W:
-        return _precompute_compact(intensity, dIx, dIy, depth, cam, min_gradient, max_points)
+    P = H * W (dense) or the compact capacity. The span "align.precompute"."""
+    with timer.scope("align.precompute"):
+        H, W = intensity.shape[-2:]
+        batch = intensity.shape[:-2]
+        cam = cam_mod.expand(cam, len(batch))
+        if max_points and max_points < H * W:
+            return _precompute_compact(intensity, dIx, dIy, depth, cam, min_gradient, max_points)
 
-    dtype, device = intensity.dtype, intensity.device
-    grad2 = dIx * dIx + dIy * dIy
-    depth_valid = _depth_valid_3x3(depth)
-    mask = (grad2 >= min_gradient * min_gradient) & depth_valid
+        dtype, device = intensity.dtype, intensity.device
+        grad2 = dIx * dIx + dIy * dIy
+        depth_valid = _depth_valid_3x3(depth)
+        mask = (grad2 >= min_gradient * min_gradient) & depth_valid
 
-    ys = torch.arange(H, dtype=dtype, device=device)[:, None].expand(H, W)
-    xs = torch.arange(W, dtype=dtype, device=device)[None, :].expand(H, W)
-    uv = torch.stack([xs, ys], dim=-1).expand(*batch, H, W, 2)
-    z = torch.where(depth_valid, depth, torch.zeros_like(depth))
-    pix_cam = cam_mod.expand(cam, len(batch) + 2)
-    pcl = cam_mod.backproject(pix_cam, uv, z)  # (*L, H, W, 3)
+        ys = torch.arange(H, dtype=dtype, device=device)[:, None].expand(H, W)
+        xs = torch.arange(W, dtype=dtype, device=device)[None, :].expand(H, W)
+        uv = torch.stack([xs, ys], dim=-1).expand(*batch, H, W, 2)
+        z = torch.where(depth_valid, depth, torch.zeros_like(depth))
+        pix_cam = cam_mod.expand(cam, len(batch) + 2)
+        pcl = cam_mod.backproject(pix_cam, uv, z)  # (*L, H, W, 3)
 
-    Jw = _projection_jacobian(pcl, pix_cam.fx, pix_cam.fy)
-    J = dIx[..., None] * Jw[..., 0, :] + dIy[..., None] * Jw[..., 1, :]
-    mask = mask & (pcl[..., 2] > 0.0)
-    J = torch.where(mask[..., None], J, torch.zeros_like(J))
-    P = H * W
-    mask = mask.reshape(*batch, P)
-    return ICLevelData(
-        pcl=pcl.reshape(*batch, P, 3),
-        J=J.reshape(*batch, P, 6),
-        templ=intensity.reshape(*batch, P),
-        mask=mask,
-        n_constraints=mask.sum(-1).to(dtype),
-    )
+        Jw = _projection_jacobian(pcl, pix_cam.fx, pix_cam.fy)
+        J = dIx[..., None] * Jw[..., 0, :] + dIy[..., None] * Jw[..., 1, :]
+        mask = mask & (pcl[..., 2] > 0.0)
+        J = torch.where(mask[..., None], J, torch.zeros_like(J))
+        P = H * W
+        mask = mask.reshape(*batch, P)
+        return ICLevelData(
+            pcl=pcl.reshape(*batch, P, 3),
+            J=J.reshape(*batch, P, 6),
+            templ=intensity.reshape(*batch, P),
+            mask=mask,
+            n_constraints=mask.sum(-1).to(dtype),
+        )
 
 
 def _precompute_compact(intensity, dIx, dIy, depth, cam: Camera, min_gradient, n_sel) -> ICLevelData:
@@ -553,33 +555,42 @@ def align(
     (B, L, max_iterations), iterations (B, L). ``record_iterations`` adds
     the visual-log trace: x_log (B, L, max_iterations, 6), log(delta) at
     each evaluated iteration (NaN after), and each level's entry pose
-    rel0_R (B, L, F, 3, 3), rel0_t (B, L, F, 3)."""
-    _check_supported(cfg)
-    B = rel_init.t.shape[0]
-    dtype, device = cur_frame.intensity[0].dtype, cur_frame.intensity[0].device
-    rel = rel_init
-    cov = torch.eye(6, dtype=dtype, device=device).expand(B, 6, 6).clone()
-    valid_any = torch.zeros(B, dtype=torch.bool, device=device)
-    hist = {k: [] for k in ("chi2", "step_size", "iterations", "x_log", "rel0_R", "rel0_t")}
-    n_levels = len(ref_data) if ref_data is not None else len(ref_frames.intensity)
-    for level in range(n_levels - 1, -1, -1):
-        data = ref_data[level] if ref_data is not None else level_data(ref_frames, level, cfg)
-        image_cur = cur_frame.intensity[level]
-        if cfg.normalize_intensity:
-            image_cur = _standardize(image_cur)
-        rel0 = rel
-        rel, result = solve_level(data, rel0, image_cur, cur_frame.cameras[level], cfg, x_pred,
-                                  record_iterations=record_iterations)
-        cov = torch.where(result.valid[:, None, None], inv_psd(result.A), cov)
-        valid_any = valid_any | result.valid
-        hist["chi2"].append(result.chi2_history)
-        hist["step_size"].append(result.step_history)
-        hist["iterations"].append(result.iterations)
-        if record_iterations:
-            hist["x_log"].append(result.x_history)
-            hist["rel0_R"].append(rel0.R)
-            hist["rel0_t"].append(rel0.t)
-    if not (with_diagnostics or record_iterations):
-        return rel, cov, valid_any
-    diag = {k: torch.stack(v, dim=1) for k, v in hist.items() if v}
-    return rel, cov, valid_any, diag
+    rel0_R (B, L, F, 3, 3), rel0_t (B, L, F, 3).
+
+    Spans "align" around it all and "align.solve" around each level's solve;
+    counters "align.gn_solves" (B a level) and "align.gn_iterations" (each
+    level's accepted iterations, a device tensor, kept while a profiler
+    records)."""
+    with timer.scope("align"):
+        _check_supported(cfg)
+        B = rel_init.t.shape[0]
+        dtype, device = cur_frame.intensity[0].dtype, cur_frame.intensity[0].device
+        rel = rel_init
+        cov = torch.eye(6, dtype=dtype, device=device).expand(B, 6, 6).clone()
+        valid_any = torch.zeros(B, dtype=torch.bool, device=device)
+        hist = {k: [] for k in ("chi2", "step_size", "iterations", "x_log", "rel0_R", "rel0_t")}
+        n_levels = len(ref_data) if ref_data is not None else len(ref_frames.intensity)
+        for level in range(n_levels - 1, -1, -1):
+            data = ref_data[level] if ref_data is not None else level_data(ref_frames, level, cfg)
+            image_cur = cur_frame.intensity[level]
+            if cfg.normalize_intensity:
+                image_cur = _standardize(image_cur)
+            rel0 = rel
+            with timer.scope("align.solve"):
+                rel, result = solve_level(data, rel0, image_cur, cur_frame.cameras[level], cfg, x_pred,
+                                          record_iterations=record_iterations)
+            timer.count("align.gn_solves", B)
+            timer.count("align.gn_iterations", result.iterations)
+            cov = torch.where(result.valid[:, None, None], inv_psd(result.A), cov)
+            valid_any = valid_any | result.valid
+            hist["chi2"].append(result.chi2_history)
+            hist["step_size"].append(result.step_history)
+            hist["iterations"].append(result.iterations)
+            if record_iterations:
+                hist["x_log"].append(result.x_history)
+                hist["rel0_R"].append(rel0.R)
+                hist["rel0_t"].append(rel0.t)
+        if not (with_diagnostics or record_iterations):
+            return rel, cov, valid_any
+        diag = {k: torch.stack(v, dim=1) for k, v in hist.items() if v}
+        return rel, cov, valid_any, diag

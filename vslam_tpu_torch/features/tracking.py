@@ -19,7 +19,6 @@ JAX package pads them for its compiled programs.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import List
 
 import numpy as np
@@ -102,11 +101,9 @@ class FeatureTracking:
     def extract(self, frame: HostFrame) -> None:
         """Fill frame.keypoints / descriptors / kp_depth / kp_landmark
         (FeatureTracking::extractFeatures) from its level-0 images."""
-        with timer.scope("track.extract_dispatch"):
-            out = _detect_describe(frame.frame.intensity[0], frame.frame.depth[0],
-                                   threshold=self.fast_threshold, cell=self.grid_cell)
-        with timer.scope("track.extract_fetch"):
-            uv, _resp, keep, desc, z = (t.cpu().numpy() for t in out)
+        out = _detect_describe(frame.frame.intensity[0], frame.frame.depth[0],
+                               threshold=self.fast_threshold, cell=self.grid_cell)
+        uv, _resp, keep, desc, z = (t.cpu().numpy() for t in out)
         frame.keypoints = uv[keep]
         frame.descriptors = desc[keep]
         frame.kp_depth = z[keep]
@@ -290,7 +287,6 @@ class FeatureTracking:
         pool_refs = list(reversed(all_curs[:-1])) + refs_w
         if not pool_refs:
             return []
-        t_pool = time.perf_counter()
         seg_rank: List[np.ndarray] = []
         desc_pool_l, pw_l, pid_l, usable_l = [], [], [], []
         cand: List = []
@@ -367,7 +363,6 @@ class FeatureTracking:
 
         if not mask_c.any():
             return []
-        timer.record("track.pool", time.perf_counter() - t_pool)
         with timer.scope("track.match"), self.compute_ctx() as dev:
             t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
             idx, ok = _match_pool_batch(t(desc_q), t(uv_q), t(mask_q), t(desc_pool), t(p3d), t(mask_c),
@@ -375,7 +370,6 @@ class FeatureTracking:
             both = torch.stack([idx, ok.to(idx.dtype)]).cpu().numpy()
         idx, ok = both[0], both[1].astype(bool)
         new_points: List[Landmark] = []
-        t_book = time.perf_counter()
         try:
             for bi, (_j, cur) in enumerate(queries):
                 nq = len(cur.keypoints)
@@ -386,5 +380,4 @@ class FeatureTracking:
         except Exception as exc:
             exc.mutated_map = True
             raise
-        timer.record("track.bookkeep", time.perf_counter() - t_book)
         return new_points

@@ -53,7 +53,6 @@ from ..core.se3 import SE3
 from ..kalman import ekf_se3
 from ..utils import timer
 from ..utils.log import get_logger
-from ..utils.profiling import annotate
 from ..utils.tree import tree_map
 
 __all__ = [
@@ -127,16 +126,18 @@ def _sensor_frame(intensity: torch.Tensor, second: torch.Tensor, camera: Camera,
                   cfg: SequentialConfig):
     """(S, H, W) sensor images on the device -> the current frame's pyramid.
     ``second`` is depth counts, or with ``stereo_baseline > 0`` the right
-    image, block-matched against the left with each sequence's fx."""
-    intensity = _sensor_f32(intensity)
-    if cfg.stereo_baseline > 0.0:
-        from ..io.kitti import stereo_depth
+    image, block-matched against the left with each sequence's fx. The
+    span "frame.build"."""
+    with timer.scope("frame.build"):
+        intensity = _sensor_f32(intensity)
+        if cfg.stereo_baseline > 0.0:
+            from ..io.kitti import stereo_depth
 
-        depth = stereo_depth(intensity, _sensor_f32(second), camera.fx, cfg.stereo_baseline,
-                             max_disparity=cfg.stereo_max_disparity)
-    else:
-        depth = _sensor_f32(second) * cfg.depth_scale
-    return create_frame(intensity, depth, camera, n_levels=cfg.n_levels)
+            depth = stereo_depth(intensity, _sensor_f32(second), camera.fx, cfg.stereo_baseline,
+                                 max_disparity=cfg.stereo_max_disparity)
+        else:
+            depth = _sensor_f32(second) * cfg.depth_scale
+        return create_frame(intensity, depth, camera, n_levels=cfg.n_levels)
 
 
 def init_state(intensity: np.ndarray, depth: np.ndarray, camera: Camera,
@@ -301,11 +302,12 @@ def scan_odometry(state: SequentialState, intensity, depth, dt, live, camera: Ca
     """Run a chunk of K frames: intensity and depth (K, S, H, W), dt and
     live (K, S), or live None when every slot is live. Returns (state,
     poses SE3 (K, S), valid (K, S), cov (K, S, 6, 6), is_kf (K, S));
-    nothing waits for the device."""
+    nothing waits for the device. Each step is a span "scan.step"."""
     outs = []
     for k in range(intensity.shape[0]):
-        state, out = _step(state, intensity[k], depth[k], dt[k],
-                           None if live is None else live[k], camera, cfg)
+        with timer.scope("scan.step"):
+            state, out = _step(state, intensity[k], depth[k], dt[k],
+                               None if live is None else live[k], camera, cfg)
         outs.append(out)
     poses = SE3(torch.stack([o[0].R for o in outs]), torch.stack([o[0].t for o in outs]))
     valid, cov, is_kf = (torch.stack([o[i] for o in outs]) for i in (1, 2, 3))
@@ -488,7 +490,7 @@ class SequentialOdometry:
         sc, poses, valid, cov, is_kf, C_dispatch, detect = rec
         results, kf_flags = self._collect(sc.stamps, poses, valid, cov, is_kf, out)
         if self.viz is not None:
-            with annotate("viz.publish"):
+            with timer.scope("viz.publish"):
                 for (t, T, c), kf in zip(results, kf_flags):
                     self.viz.publish_odometry(t, T, cov=c)
                     if kf:
@@ -534,7 +536,7 @@ class SequentialOdometry:
 
     def _publish_landmarks(self, positions: Optional[np.ndarray]) -> None:
         if positions is not None:
-            with annotate("viz.publish"):
+            with timer.scope("viz.publish"):
                 self.viz.publish_landmarks(positions)
 
     def _worker_job(self, args, kwargs, C_dispatch):

@@ -301,9 +301,9 @@ class MultiSequenceOdometry:
                     get_logger("sequential").warning(
                         "stale backend job of sequence %d from an aborted prior run failed: %s", s, exc)
             self._backend_futures = None
-        i0 = np.stack([np.asarray(f[1]) for f in firsts])
-        d0 = np.stack([np.asarray(f[2]) for f in firsts])
         with timer.scope("suite.init_states"):
+            i0 = np.stack([np.asarray(f[1]) for f in firsts])
+            d0 = np.stack([np.asarray(f[2]) for f in firsts])
             states = init_states(_upload(i0, self.device), _upload(d0, self.device), self.cameras, self.cfg)
         out: List[List[Tuple[int, np.ndarray, np.ndarray]]] = [
             [(int(f[0]), np.eye(4), np.eye(6))] for f in firsts
@@ -443,23 +443,23 @@ class MultiSequenceOdometry:
     @staticmethod
     def _collect(out, stamps, poses: SE3, cov: torch.Tensor, is_kf: Optional[torch.Tensor] = None):
         """The chunk's one fetch, then f64 poses re-orthonormalized by SVD
-        on the host. With ``is_kf``, returns (keyframe flags (S, K), the
-        chunk's results per sequence)."""
+        on the host, both in the span "suite.collect". With ``is_kf``,
+        returns (keyframe flags (S, K), the chunk's results per sequence)."""
         with timer.scope("suite.collect"):
             S, K = poses.t.shape[:2]
             parts = [poses.R.reshape(S, K, 9), poses.t.reshape(S, K, 3), cov.reshape(S, K, 36)]
             if is_kf is not None:
                 parts.append(is_kf.reshape(S, K, 1).to(cov.dtype))
             flat = torch.cat(parts, dim=-1).cpu().double().numpy()
-        results = [[] for _ in stamps]
-        for s, seq_stamps in enumerate(stamps):
-            for j, t_ns in enumerate(seq_stamps):
-                T = np.eye(4)
-                u, _, vt = np.linalg.svd(flat[s, j, :9].reshape(3, 3))
-                T[:3, :3] = u @ vt
-                T[:3, 3] = flat[s, j, 9:12]
-                row = (t_ns, T, flat[s, j, 12:48].reshape(6, 6))
-                out[s].append(row)
-                results[s].append(row)
+            results = [[] for _ in stamps]
+            for s, seq_stamps in enumerate(stamps):
+                for j, t_ns in enumerate(seq_stamps):
+                    T = np.eye(4)
+                    u, _, vt = np.linalg.svd(flat[s, j, :9].reshape(3, 3))
+                    T[:3, :3] = u @ vt
+                    T[:3, 3] = flat[s, j, 9:12]
+                    row = (t_ns, T, flat[s, j, 12:48].reshape(6, 6))
+                    out[s].append(row)
+                    results[s].append(row)
         if is_kf is not None:
             return flat[..., 48] > 0.5, results

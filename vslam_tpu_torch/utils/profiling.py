@@ -1,10 +1,12 @@
 """Device tracing and memory statistics (port of `vslam_tpu.utils.profiling`).
 
 ``trace(dir)`` wraps a region in `torch.profiler` and writes a Chrome trace
-(`trace.json`, chrome://tracing or Perfetto) into ``dir``: the host ops and,
-on CUDA, every kernel with its device time. The CLI's ``--profile-dir``
-uses it. ``annotate(name)`` names a span inside it, and
-``device_memory_stats()`` reads the caching allocator's counters.
+(`trace.json`, chrome://tracing or Perfetto) into ``dir``: the host ops,
+every program span of `utils.timer` (each ``timer.scope`` is a
+`record_function` range while the trace is open) and, on CUDA, every kernel
+with its device time, on one clock. The CLI's ``--profile-dir`` uses it.
+``annotate(name)`` is ``timer.scope(name)``, and ``device_memory_stats()``
+reads the caching allocator's counters.
 
 Not ported, with their reasons:
 
@@ -22,12 +24,15 @@ import contextlib
 import os
 from typing import Dict
 
+from . import timer
+
 __all__ = ["trace", "annotate", "device_memory_stats"]
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Capture a trace of the wrapped region into ``log_dir``/trace.json;
+    """Capture a trace of the wrapped region into ``log_dir``/trace.json,
+    the program's `utils.timer` spans in it as `record_function` ranges;
     wrap exactly the region of interest, as traces of whole replays are
     large. Yields the profiler."""
     import torch
@@ -37,18 +42,20 @@ def trace(log_dir: str):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
+    ranges, timer._ranges = timer._ranges, True
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+    finally:
+        timer._ranges = ranges
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def annotate(name: str):
-    """Named sub-span inside an active trace (a `torch.profiler.
-    record_function` range, under its name in trace.json), as the
-    reference's TIMED_SCOPE names show in its perf logs."""
-    from torch.profiler import record_function
-
-    return record_function(name)
+    """A named program span, ``timer.scope(name)``: in the registry, and in
+    trace.json under its name inside an active `trace`, as the reference's
+    TIMED_SCOPE names show in its perf logs."""
+    return timer.scope(name)
 
 
 # the JAX function's keys (the XLA allocator's names) that the caching
