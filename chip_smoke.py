@@ -230,9 +230,23 @@ Phases, each ending in torch.cuda.synchronize():
                 before it, the host's waits for the card in one headline
                 call and in the rep loop (torch's sync debug mode); the
                 subprocess's launches join the kernel line's counts
+ 31. frame build — the frame build kernel (`csrc/frame_build.cu`) at the
+                suite's shapes, FB_FRAMES 480x640 uint8 + 16-bit depth at
+                1/5000 m, 3 levels, against its plain version on the same
+                tensors on the card, bit for bit (max_abs_err 0.0); its
+                device ms (events, FB_REPS calls) beside its bound (the
+                bytes read and written once at 3.35 TB/s) and the plain
+                version's ms; the launches (one a level); the sweep of
+                FB_SWEEP (blocks an SM at level 0 and above), each build
+                bit for bit, device ms a level in turns. Its kernel line
+                entry counts the launches of the main-path runs whose
+                kernel-1 launches that line sums (phases 7, 11, 17, 20,
+                21, 23-25, 27, 28, and phase 30's subprocess whole, as
+                for kernel 1), from 0 at each reset; not phase 31's own
+                nor a timing loop of this process
 Every phase that runs a mapping backend (17, 18, 23-25, 27) fails on any
 warning of the "mapping" logger (its graceful degradation hides nothing).
-Phases 17-30 print their wall time. Phase 18's second half runs after
+Phases 17-31 print their wall time. Phase 18's second half runs after
 phase 21, on its frames and phase 20's: `odometry --format kitti` on a
 KITTI root of 8 pairs (host loop, --fused, --fused --mapping), and a
 repeated --dataset on two TUM directories (with and without --mapping) and
@@ -861,10 +875,24 @@ def _pair_errors(rel, xis):
 def _reset_launches():
     """Every kernel wrapper's launch count to 0."""
     from vslam_tpu_torch.alignment import fused_ne, fused_solve, pallas_kernels
+    from vslam_tpu_torch.core import frame_build
 
     fused_solve.LAUNCHES = fused_solve.ROBUST_LAUNCHES = 0
     fused_ne.SAMPLE_LAUNCHES = fused_ne.NE_LAUNCHES = 0
     pallas_kernels.MXU_LAUNCHES = 0
+    frame_build.FRAME_BUILD_LAUNCHES = 0
+
+
+# phase: the frame build's launches in its counted main-path runs (the
+# runs whose kernel-1 launches the kernel line sums), for that line
+FRAME_BUILDS = {}
+
+
+def _frame_builds(phase):
+    """Adds the frame build's launches since the reset to FRAME_BUILDS."""
+    from vslam_tpu_torch.core import frame_build
+
+    FRAME_BUILDS[phase] = FRAME_BUILDS.get(phase, 0) + frame_build.FRAME_BUILD_LAUNCHES
 
 
 def _launches():
@@ -947,6 +975,7 @@ def _run_profile(profile, poses, stream, camera, log):
     results = odo.run(iter(stream))
     _sync()
     quad, robust = _launches()
+    _frame_builds(f"7 {profile}")
     ate = _ate(poses, results)
     n_valid = sum(odo.valid)
     log(f"{profile} profile: {len(results)} frames at {H}x{W}, chunk {chunk}; launches quadratic "
@@ -1355,6 +1384,7 @@ def _visual_log(poses, stream, camera, log):
     pose_rec, _, ok = align(True)
     _sync()
     samples, whole = fused_ne.SAMPLE_LAUNCHES, fused_solve.LAUNCHES
+    _frame_builds("11")
     (payload,) = got["SolverGN"]
     n_eval = np.isfinite(payload["chi2"]).sum(axis=1)  # per level, coarsest first
     want = [(2, H >> lvl, W >> lvl) for i, lvl in enumerate(range(N_LEVELS - 1, -1, -1))
@@ -1499,14 +1529,16 @@ def _variant_key(stem: str, constants: dict):
 def _start_variants():
     """Start the nvcc of the variants the sweeps measure (one process each,
     all together): the whole-level kernel at each CTA count of CTAS_TRIED,
-    each build of RESIDUAL_SWEEPS and the mxu kernel at each of MXU_STAGES,
-    but those whose constants are all the source's own. Returns
+    each build of RESIDUAL_SWEEPS, the mxu kernel at each of MXU_STAGES and
+    the frame build at each of FB_SWEEP, but those whose constants are all
+    the source's own. Returns
     (`_build.Variants`, their keys)."""
     from vslam_tpu_torch import _build
 
     specs = [("fused_solve", {"kCtas": c}) for c in CTAS_TRIED]
     specs += [("fused_ne", v) for variants in RESIDUAL_SWEEPS.values() for v in variants]
     specs += [("sample_mxu", {"kMxuStage": stage}) for stage in MXU_STAGES]
+    specs += [("frame_build", v) for v in FB_SWEEP]
     keys, todo = [], []
     for stem, constants in specs:
         key = _variant_key(stem, constants)
@@ -1760,6 +1792,7 @@ def _pipeline_run(cfg, stream, pipelined, device):
         _sync()
         wall = time.perf_counter() - t0
     evaluations = sum(int(torch.isfinite(h).sum()) for h in hist)
+    _frame_builds("17")
     return traj, keyframes, wall, evaluations, waits
 
 
@@ -2087,6 +2120,7 @@ def _kitti(poses, stream, card, log):
     results = odo.run(iter(stream))
     _sync()
     launches = _launches()
+    _frame_builds("20")
     ate = _kitti_ate(poses, results)
     log(f"phase 20 KITTI stereo scan: {len(results)} frames at {KITTI_W}x{KITTI_H}, {KITTI_LEVELS} levels, chunk "
         f"{KITTI_CHUNK}; launches (quadratic, robust) {launches} (expected ({KITTI_LEVELS * n_steps}, 0)); valid "
@@ -2215,6 +2249,7 @@ def _suite(poses, streams, card, log):
         res = odo.run([iter(s) for s in seqs])
         _sync()
         launches = _launches()
+        _frame_builds("21")
         ates = [_ate(poses[:len(s)], r) for s, r in zip(seqs, res)]
         log(f"phase 21 suite {label}: S={len(seqs)} x {'/'.join(str(len(s)) for s in seqs)} frames at {H}x{W}, "
             f"chunk {SUITE_CHUNK}; launches (quadratic, robust) {launches} (expected ({3 * n_steps}, 0)); ATE "
@@ -2926,6 +2961,7 @@ def _slam(poses, stream, card, log):
         _reset_launches()
         res_stream, wall_stream = run(streamed)
         launches = _launches()
+        _frame_builds("23")
         ate_stream = _ate(poses, res_stream)
         first, chunks = stage_stream(iter(stream), SLAM_CHUNK)
         run(None, (first, chunks))
@@ -3034,6 +3070,7 @@ def _slam_drift(poses, stream, card, log):
         _sync()
         wall = time.perf_counter() - t0
         launches = _launches()
+        _frame_builds("24")
     ate_online = _ate(poses, res)
     ate_corr = _ate(poses, backend.corrected_trajectory(res))
     worker_ops = _worker_ops(ops, "phase 24 slam_drift", log)
@@ -3110,6 +3147,7 @@ def _kitti_loop(poses, stream, card, log):
         _sync()
         wall = time.perf_counter() - t0
         launches = _launches()
+        _frame_builds("25")
     ate_online = _kitti_ate(poses, res)
     ate_corr = _kitti_ate(poses, backend.corrected_trajectory(res))
     worker_ops = _worker_ops(ops, "phase 25 kitti_loop", log)
@@ -3296,6 +3334,7 @@ def _viewer_slam(slam_poses, slam_stream, slam_streamed, card, log):
             # in turns, so that both share the host's state: off, on, on, off
             res_off, wall_off, launches_off, _, _ = run(None)
             res, wall, launches, odo, backend = run(viz)
+            _frame_builds("27")
             state = json.loads(_http(viz.port, "/state.json"))
             page = _http(viz.port, "/").decode()
             publish_s = spent[0]
@@ -3371,6 +3410,7 @@ def _resume(poses, stream, card, log):
     resumed = first + odo2.run(iter(stream[RESUME_SPLIT:]))
     _sync()
     launches = _launches()
+    _frame_builds("27")
     gaps = [float(np.linalg.norm(lie_np.log(lie_np.relative(a[1], b[1])))) for a, b in zip(resumed, full)]
     same = sum(np.array_equal(a[1], b[1]) for a, b in zip(resumed, full))
     dtypes = sorted({str(x.dtype).removeprefix("torch.") for x in saved})
@@ -3430,6 +3470,7 @@ def _viewer_pipeline(poses, stream, device, card, log):
             _sync()
             wall = time.perf_counter() - t0
             launches = _launches()
+            _frame_builds("27")
         state = json.loads(_http(pipe.viz.port, "/state.json"))
     finally:
         pipe.viz.close()
@@ -3460,6 +3501,7 @@ def _viewer_cli(tum_sets, card, log):
             rc, lines = _cli_json(["synthetic", "--frames", str(CLI_FRAMES), "--height", str(H), "--width", str(W),
                                    "--fx", str(FX), "--live-viz", "0", *flags])
             launches += _launches()[0]
+            _frame_builds("27")
             frames = [v.state()["n_frames"] for v in made]
         (res,) = [json.loads(line) for line in lines if line.startswith("{")]
         log(f"phase 27 (d) CLI synthetic --live-viz 0 {' '.join(flags) or '(host loop)'}: exit {rc}, {res}; the "
@@ -3479,6 +3521,7 @@ def _viewer_cli(tum_sets, card, log):
                                    f"{FX},{FX},{(W - 1) / 2},{(H - 1) / 2}", "--fused", "--live-viz", "0",
                                    "--out", os.path.join(d, "suite.txt")])
             launches += _launches()[0]
+            _frame_builds("27")
     said = [m for m in warned if "--live-viz is not supported" in m]
     log(f"phase 27 (d) CLI odometry suite of two TUM directories --live-viz 0: exit {rc}, warned {said}, viewers "
         f"built {len(made)}")
@@ -3510,6 +3553,7 @@ def _profiled_chunk(slam_stream, card, log):
                 odo.run(iter(slam_stream[:SLAM_CHUNK + 1]))
                 _sync()
                 launches = _launches()
+                _frame_builds("27")
             with open(os.path.join(d, "trace.json")) as f:
                 events = json.load(f)["traceEvents"]
     finally:
@@ -3630,11 +3674,13 @@ def _mesh_one(frames, track, suite_streams, suite_run, card, log):
                 res = odo.run([iter(s) for s in suite_streams])
             _sync()
             launches_run, fracs = _launches(), list(odo.fracs)
+            _frame_builds("28")
             firsts, chunks = odo.stage_streams([iter(s) for s in suite_streams])
             _reset_launches()
             res_staged = odo.run_staged(firsts, chunks)
             _sync()
             launches_staged = _launches()
+            _frame_builds("28")
             gaps = [_trajectory_gap(r, suite_run) for r in (res, res_staged)]
             n_steps = SUITE_FRAMES - 1
             log(f"phase 28 (a) MultiSequenceOdometry(mesh=make_mesh()) S={SUITE_S} x {SUITE_FRAMES} frames: "
@@ -3656,6 +3702,7 @@ def _mesh_one(frames, track, suite_streams, suite_run, card, log):
                                                                odo.cameras)
             _sync()
             launches_scan = _launches()
+            _frame_builds("28")
             diff_scan = _max_abs_diff((*got[1], got[2], got[3], got[4]), (*want[1], want[2], want[3], want[4]))
             K = c.intensity.shape[1]
             log(f"phase 28 (a) sharded_scan_sequences on one chunk (S={SUITE_S}, K={K}): launches {launches_scan}, "
@@ -4037,6 +4084,87 @@ def result_line(kind: str) -> dict:
     return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}
 
 
+FB_FRAMES = 512  # the suite's sequences: the frames one scan step builds
+FB_REPS = 20
+# the frame build's blocks an SM (its registers' cap) tried beside the
+# source's own, at level 0 and above it
+FB_SWEEP = ({"kFbTopBlocks": 3}, {"kFbTopBlocks": 5}, {"kFbDownBlocks": 3})
+FB_ROUNDS = 4
+
+
+def _frame_build(card, log, variant_libs):
+    """Phase 31: the frame build kernel against its plain version at the
+    suite's shapes, bit for bit, and its time beside its bound; then each
+    build of FB_SWEEP against the source's, bit for bit, device ms a level
+    (1, 2 and 3 levels built, in turns, the median of FB_ROUNDS). Returns
+    its entry of the kernel line, but for the launches (`FRAME_BUILDS`)."""
+    import torch
+
+    from vslam_tpu_torch.core import frame_build
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    inten = torch.randint(0, 256, (FB_FRAMES, H, W), dtype=torch.uint8, device="cuda", generator=g)
+    counts = torch.randint(0, 65536, (FB_FRAMES, H, W), dtype=torch.int32, device="cuda", generator=g)
+    counts = torch.where(torch.rand(counts.shape, device="cuda", generator=g) < 0.3, 0, counts)
+    bits = counts.to(torch.int16)  # wraps above 32767: the bits of the unsigned counts
+    scale = 1.0 / 5000.0
+    before = frame_build.FRAME_BUILD_LAUNCHES
+    out_k = frame_build.build_pyramid(inten, bits, N_LEVELS, scale)
+    out_p = frame_build.build_pyramid_plain(inten, bits, N_LEVELS, scale)
+    _sync()
+    launches = frame_build.FRAME_BUILD_LAUNCHES - before
+    if launches != N_LEVELS:
+        raise AssertionError(f"frame build launched {launches} kernels, expected {N_LEVELS}")
+    err, unequal = 0.0, []
+    for name, k_levels, p_levels in zip(("intensity", "depth", "dIx", "dIy"), out_k, out_p):
+        for lvl, (k, p) in enumerate(zip(k_levels, p_levels)):
+            p = p.contiguous()
+            err = max(err, float((k - p).abs().max()))
+            if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+                unequal.append(f"{name}[{lvl}]")
+    if unequal:
+        raise AssertionError(f"frame build kernel and plain differ in {unequal}: max_abs_err {err:.3e}")
+    del out_k, out_p
+    run_k = lambda: frame_build.build_pyramid(inten, bits, N_LEVELS, scale)  # noqa: E731
+    run_p = lambda: frame_build.build_pyramid_plain(inten, bits, N_LEVELS, scale)  # noqa: E731
+    run_k()
+    p1 = _events_ms(run_p, 2)
+    k1 = _events_ms(run_k, FB_REPS)
+    k2 = _events_ms(run_k, FB_REPS)
+    p2 = _events_ms(run_p, 2)
+    px = sum(h * w for h, w in frame_build.level_shapes(H, W, N_LEVELS))
+    nbytes = FB_FRAMES * (3 * H * W + 16 * px)  # sensor bytes read, four f32 planes a level written
+    bound = _bound(0.0, nbytes)
+    ms, plain_ms = min(k1, k2), min(p1, p2)
+    log(f"frame build: {FB_FRAMES} x {H}x{W} uint8 + 16-bit depth, {N_LEVELS} levels, {launches} launches a "
+        f"build, bit for bit against the plain version (max_abs_err {err:.1e}); kernel {ms:.4f} ms "
+        f"(events, runs plain,kernel,kernel,plain: {p1:.3f}, {k1:.4f}, {k2:.4f}, {p2:.3f}), bound "
+        f"{bound[0]:.4f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s: {100 * bound[0] / ms:.1f} % of it), plain "
+        f"{plain_ms:.3f} ms {card}")
+    libs = {"source": None, **{", ".join(f"{k} {x}" for k, x in v.items()):
+                               variant_libs[_variant_key("frame_build", v)] for v in FB_SWEEP}}
+    out_p = frame_build.build_pyramid_plain(inten, bits, N_LEVELS, scale)
+    times = {name: {n: [] for n in range(1, N_LEVELS + 1)} for name in libs}
+    for name, lib in libs.items():
+        out_k = frame_build._launch(inten, bits, N_LEVELS, scale, lib=lib)
+        if not all(torch.equal(k.view(torch.int32), p.contiguous().view(torch.int32))
+                   for k_levels, p_levels in zip(out_k, out_p) for k, p in zip(k_levels, p_levels)):
+            raise AssertionError(f"frame build {name} and plain differ")
+    del out_k, out_p
+    for rnd in range(FB_ROUNDS):
+        for name in (list(libs) if rnd % 2 == 0 else list(reversed(libs))):
+            for n in times[name]:
+                times[name][n].append(_events_ms(
+                    lambda: frame_build._launch(inten, bits, n, scale, lib=libs[name]), FB_REPS // 2))
+    for name, by_n in times.items():
+        med = {n: float(np.median(v)) for n, v in by_n.items()}
+        split = ", ".join(f"level {n - 1} {med[n] - med.get(n - 1, 0.0):.3f}" for n in med)
+        log(f"frame build sweep, {name}: {med[N_LEVELS]:.4f} ms ({split}), bit for bit {card}")
+    return {"name": "frame_build", "route": "cuda", "source": "vslam_tpu_torch/csrc/frame_build.cu",
+            "replaces": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -4338,6 +4466,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_bench = _bench((frames["ref"], frames["cur"], rel0, x_pred, xis, cfg), smi, card, log)
     log(f"phase 30 took {time.perf_counter() - t0:.1f} s {card}")
+
+    # 31. the frame build kernel at the suite's shapes
+    t0 = time.perf_counter()
+    frame_build_entry = _frame_build(card, log, variant_libs)
+    log(f"phase 31 took {time.perf_counter() - t0:.1f} s {card}")
     max_abs = max(max_abs, err_kitti, err_suite, err_slam, err_loop, err_mesh)
     max_abs_robust = max(max_abs_robust, err_drift, err_mesh)
     max_abs_robust = max(max_abs_robust, err_sizes["solve_level_fused_robust"])
@@ -4380,6 +4513,9 @@ def main() -> int:
     for name, k in kernels.items():
         entries.append({"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
                         "launches": launches_new[name], "max_abs_err": err_new[name], **times_new[name]})
+    FRAME_BUILDS["30"] = launches_bench.get("frame_build", 0)
+    log(f"frame build launches of the counted main-path runs, by phase: {FRAME_BUILDS}")
+    entries.append({**frame_build_entry, "launches": sum(FRAME_BUILDS.values())})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps(result_line(torch.cuda.get_device_name(0))), flush=True)
     return 0

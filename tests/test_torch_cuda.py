@@ -1149,3 +1149,212 @@ def test_device_memory_stats_on_the_card(device):
     assert all(isinstance(v, int) for v in stats.values())
     assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"] >= x.numel() * 4 > 0
     assert stats["bytes_limit"] >= stats["bytes_reserved"] >= stats["bytes_in_use"]
+
+
+# ---------------------------------------------------------------------------
+# Frame build (csrc/frame_build.cu) against the plain stencils on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _sensor_batch(rng, shape, holes=0.3):
+    """uint8 intensity and int16 bits of unsigned depth counts, counts of
+    32768 and more among them, a share of holes (count 0)."""
+    inten = rng.integers(0, 256, shape, dtype=np.uint8)
+    counts = rng.integers(1, 65536, shape).astype(np.uint16)
+    counts[rng.uniform(size=shape) < holes] = 0
+    return inten, counts.view(np.int16)
+
+
+def _assert_pyramids_equal(kernel, plain, frames=None):
+    """Every plane of every level bit for bit; ``frames`` the leading-axis
+    indices of the kernel's planes that ``plain`` holds."""
+    for name, k_levels, p_levels in zip(("intensity", "depth", "dIx", "dIy"), kernel, plain):
+        assert len(k_levels) == len(p_levels)
+        for lvl, (k, p) in enumerate(zip(k_levels, p_levels)):
+            k = (k if frames is None else k[frames]).cpu().contiguous()
+            p = p.contiguous()
+            assert k.shape == p.shape and k.dtype == p.dtype == torch.float32, (name, lvl, k.shape, p.shape)
+            if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+                bad = (k.view(torch.int32) != p.view(torch.int32)).nonzero()[:5].tolist()
+                raise AssertionError(f"{name} level {lvl}: max_abs_err {(k - p).abs().max().item()}, "
+                                     f"first differing indices {bad}")
+
+
+def _kernel_vs_cpu(device, inten, depth, n_levels, depth_scale=1.0, frames=None):
+    """The kernel on the card and the plain version on the same tensors on
+    the CPU (``frames``: only those leading indices on the CPU)."""
+    from vslam_tpu_torch.core import frame_build
+
+    ti, td = torch.as_tensor(inten), torch.as_tensor(depth)
+    before = frame_build.FRAME_BUILD_LAUNCHES
+    out = frame_build.build_pyramid(ti.to(device), td.to(device), n_levels, depth_scale)
+    torch.cuda.synchronize()
+    assert frame_build.FRAME_BUILD_LAUNCHES == before + n_levels
+    sub = (lambda t: t) if frames is None else (lambda t: t[frames])
+    plain = frame_build.build_pyramid_plain(sub(ti), sub(td), n_levels, depth_scale)
+    _assert_pyramids_equal(out, plain, frames)
+    return out
+
+
+@pytest.mark.parametrize("S", [1, 3, 512])
+def test_frame_build_kernel_equals_plain_at_tum_shapes(device, S):
+    """The suite's frames: S x 480 x 640 uint8 + 16-bit counts at 1/5000 m,
+    3 levels. At S = 512 the CPU holds 16 of the frames, the first and the
+    last among them, and the plain version on the card all of them."""
+    from vslam_tpu_torch.core import frame_build
+
+    rng = np.random.default_rng(S)
+    inten, depth = _sensor_batch(rng, (S, 480, 640))
+    frames = None if S < 512 else torch.as_tensor([0, 1, 2, 3, 64, 65535 // 256, 300, 301] + list(range(504, 512)))
+    out = _kernel_vs_cpu(device, inten, depth, 3, 1.0 / 5000.0, frames)
+    if frames is not None:
+        plain = frame_build.build_pyramid_plain(torch.as_tensor(inten, device=device),
+                                                torch.as_tensor(depth, device=device), 3, 1.0 / 5000.0)
+        _assert_pyramids_equal(out, tuple([t.cpu() for t in lv] for lv in plain))
+
+
+def test_frame_build_kernel_equals_plain_on_the_pair_runners_f32_images(device):
+    """f32 intensity and f32 metres, as the pair cell's set-up and the
+    aligners pass them (depth widened and scaled before the build)."""
+    rng = np.random.default_rng(11)
+    inten, bits = _sensor_batch(rng, (4, 480, 640))
+    depth = (bits.view(np.uint16).astype(np.float32) * np.float32(1.0 / 5000.0))
+    _kernel_vs_cpu(device, inten.astype(np.float32), depth, 3)
+
+
+@pytest.mark.parametrize("inten_dtype", [np.float32, np.uint8])
+def test_frame_build_kernel_equals_plain_at_kitti_stereo_shapes(device, inten_dtype):
+    """KITTI's 1241x376 at 4 levels (621x188, 311x94, 156x47: odd at every
+    level, no width a multiple of 4 but the last) with f32 depth, as
+    `stereo_depth` gives it."""
+    rng = np.random.default_rng(12)
+    inten, _ = _sensor_batch(rng, (2, 376, 1241))
+    depth = rng.uniform(2.0, 80.0, (2, 376, 1241)).astype(np.float32)
+    depth[rng.uniform(size=depth.shape) < 0.2] = 0.0
+    _kernel_vs_cpu(device, inten.astype(inten_dtype), depth, 4)
+
+
+@pytest.mark.parametrize("shape,n_levels", [((5, 7), 3), ((9, 3), 2), ((3, 3), 2), ((3, 5), 1), ((2, 17, 130), 3),
+                                            ((1, 33, 67), 3), ((2, 40, 48), 3), ((1, 31, 256), 4)],
+                         ids=str)
+def test_frame_build_kernel_equals_plain_at_small_and_odd_shapes(device, shape, n_levels):
+    """Sizes below one tile, partial tiles, widths that take the scalar
+    paths (not a multiple of 4 or 16) and the vector ones."""
+    rng = np.random.default_rng(sum(shape))
+    inten, depth = _sensor_batch(rng, shape)
+    _kernel_vs_cpu(device, inten, depth, n_levels, 1.0 / 5000.0)
+    _kernel_vs_cpu(device, inten.astype(np.float32), depth.view(np.uint16).astype(np.float32) / 7.0, n_levels)
+
+
+def test_frame_build_kernel_equals_plain_on_special_depth(device):
+    """f32 depth with NaN, +-inf, 0 and negative values, and holes laid out
+    so that every valid count 0..9 of the level-1 median occurs; a depth
+    scale that overflows large values to inf."""
+    rng = np.random.default_rng(13)
+    shape = (3, 64, 96)
+    inten, _ = _sensor_batch(rng, shape)
+    depth = rng.uniform(0.5, 4.0, shape).astype(np.float32)
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -1.0, -0.0, 3.0e38, 1e-40], np.float32)
+    depth[rng.uniform(size=shape) < 0.3] = 0.0
+    pick = rng.uniform(size=shape) < 0.1
+    depth[pick] = rng.choice(special, int(pick.sum()))
+    # 3x3 windows with exactly k valid pixels at the even centres of a band
+    for k in range(10):
+        y, x = 2 + 4 * (k // 5), 4 + 8 * (k % 5)
+        win = np.zeros(9, np.float32)
+        win[:k] = rng.uniform(0.5, 4.0, k)
+        depth[0, y - 1:y + 2, x - 1:x + 2] = rng.permutation(win).reshape(3, 3)
+    out = _kernel_vs_cpu(device, inten, depth, 3)
+    counts = {k: 0 for k in range(10)}
+    d0 = torch.as_tensor(depth[0])
+    valid = torch.isfinite(d0) & (d0 > 0)
+    for y in range(2, 63, 2):
+        for x in range(2, 95, 2):
+            counts[int(valid[y - 1:y + 2, x - 1:x + 2].sum())] += 1
+    assert all(counts[k] > 0 for k in range(10)), counts
+    _kernel_vs_cpu(device, inten, depth, 3, depth_scale=4.0)
+    assert torch.isfinite(out[1][0]).all()
+
+
+def test_frame_build_kernel_equals_plain_with_two_batch_axes_and_unaligned_images(device):
+    """(2, 3, H, W) images; and images starting one frame into their
+    storage, at an address no vector load may take."""
+    rng = np.random.default_rng(14)
+    inten, depth = _sensor_batch(rng, (2, 3, 45, 64))
+    out = _kernel_vs_cpu(device, inten, depth, 3, 1.0 / 5000.0)
+    assert out[0][2].shape == (2, 3, 12, 16)
+    from vslam_tpu_torch.core import frame_build
+
+    inten, depth = _sensor_batch(rng, (4, 45, 65))
+    ti, td = torch.as_tensor(inten, device=device)[1:], torch.as_tensor(depth, device=device)[1:]
+    assert ti.data_ptr() % 16 and td.data_ptr() % 16 and ti.is_contiguous()
+    got = frame_build.build_pyramid(ti, td, 3, 1.0 / 5000.0)
+    _assert_pyramids_equal(got, frame_build.build_pyramid_plain(ti.cpu(), td.cpu(), 3, 1.0 / 5000.0))
+
+
+def test_scan_frame_build_runs_the_kernel_and_counts_its_frames(device):
+    """`_sensor_frame` on the card: one launch a level, the frames counted
+    under "frame.kernel_frames" inside the span "frame.build", and the same
+    frame as the plain build on the CPU."""
+    from vslam_tpu_torch.core import frame_build
+    from vslam_tpu_torch.odometry import sequential
+    from vslam_tpu_torch.utils import timer
+
+    rng = np.random.default_rng(15)
+    inten, depth = _sensor_batch(rng, (5, 48, 64))
+    cfg = sequential.SequentialConfig(depth_scale=1.0 / 5000.0)
+    cam = Camera.create(50.0, 50.0, 31.5, 23.5, device=device)
+    timer.reset()
+    before = frame_build.FRAME_BUILD_LAUNCHES
+    with timer.scope("scan.step"):
+        cur = sequential._sensor_frame(torch.as_tensor(inten, device=device), torch.as_tensor(depth, device=device),
+                                       cam, cfg)
+    assert frame_build.FRAME_BUILD_LAUNCHES == before + 3
+    assert timer.counter("frame.kernel_frames") == 5
+    assert timer.stats("frame.build", within="scan.step")["count"] == 1
+    cpu = sequential._sensor_frame(torch.as_tensor(inten), torch.as_tensor(depth),
+                                   Camera.create(50.0, 50.0, 31.5, 23.5, device="cpu"), cfg)
+    _assert_pyramids_equal((cur.intensity, cur.depth, cur.dIx, cur.dIy), (cpu.intensity, cpu.depth, cpu.dIx, cpu.dIy))
+    timer.reset()
+
+
+def test_suite_pass_builds_every_frame_through_the_kernel(device):
+    """A suite pass as the suite cell runs it (`MultiSequenceOdometry.
+    run_staged`): every frame, the first frames included, built by the
+    kernel and counted under "frame.kernel_frames", one launch a level a
+    build."""
+    from vslam_tpu_torch.core import frame_build
+    from vslam_tpu_torch.odometry.sequential import SequentialConfig
+    from vslam_tpu_torch.parallel.sequences import MultiSequenceOdometry
+    from vslam_tpu_torch.utils import timer
+
+    S, F = 3, 7
+    rng = np.random.default_rng(16)
+    streams = [[(i * 33_333_333, rng.integers(0, 256, (48, 64), dtype=np.uint8),
+                 rng.integers(0, 65536, (48, 64)).astype(np.uint16)) for i in range(F)] for _ in range(S)]
+    odo = MultiSequenceOdometry([Camera.create(50.0, 50.0, 31.5, 23.5, device=device)] * S,
+                                SequentialConfig(depth_scale=1.0 / 5000.0), chunk=4)
+    firsts, chunks = odo.stage_streams([iter(s) for s in streams])
+    timer.reset()
+    before = frame_build.FRAME_BUILD_LAUNCHES
+    out = odo.run_staged(firsts, chunks)
+    assert [len(seq) for seq in out] == [F] * S
+    assert timer.counter("frame.kernel_frames") == S * F
+    assert frame_build.FRAME_BUILD_LAUNCHES - before == 3 * F  # the first frames' build, then F - 1 steps
+    timer.reset()
+
+
+def test_frame_build_wrapper_refuses_bad_inputs_on_the_card(device):
+    from vslam_tpu_torch.core import frame_build
+
+    before = frame_build.FRAME_BUILD_LAUNCHES
+    x = torch.zeros(2, 8, 10, device=device)
+    with pytest.raises(ValueError, match="contiguous"):
+        frame_build._launch(x.transpose(-1, -2).contiguous().transpose(-1, -2), x, 2)
+    with pytest.raises(ValueError, match="intensity: expected uint8 or float32"):
+        frame_build.build_pyramid(x.double(), x, 2)
+    with pytest.raises(ValueError, match="one shape"):
+        frame_build.build_pyramid(x, x[:1], 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        frame_build._launch(x, x.cpu(), 2)
+    assert frame_build.FRAME_BUILD_LAUNCHES == before

@@ -5,7 +5,9 @@ code is PyTorch; each Pallas kernel of the JAX package is a hand-written
 CUDA kernel in one of three sources, built with nvcc at first use:
 `csrc/fused_solve.cu` (the whole-level Gauss-Newton solve, quadratic and
 robust entries), `csrc/fused_ne.cu` (the per-iteration sampler and normal
-equations) and `csrc/sample_mxu.cu` (the `mxu` sampler). The JAX package
+equations) and `csrc/sample_mxu.cu` (the `mxu` sampler); a fourth,
+`csrc/frame_build.cu`, builds a frame's pyramid on the card, where the JAX
+package leaves it to XLA. The JAX package
 stays the reference: every ported function is tested against the function
 it replaces. This package imports neither `jax` nor `vslam_tpu`.
 

@@ -66,6 +66,8 @@ _SIGNATURES = {
     "vslam_fused_level_ne": [_VP] * 8 + [_I] * 7 + [_VP] * 2,
     # (img, u, v, B, M, H, W, out, stream)
     "vslam_bilinear_sample_mxu": [_VP] * 3 + [_I] * 4 + [_VP] * 2,
+    # (img, dep, img_u8, dep_u16, scale, B, H, W, n_levels, out, stream)
+    "vslam_frame_build": [_VP] * 2 + [_I] * 2 + [_F] + [_I] * 4 + [_VP] * 2,
 }
 
 

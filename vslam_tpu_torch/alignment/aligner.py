@@ -23,6 +23,7 @@ import torch
 
 from ..core import lie_np
 from ..core.frame import Frame, create_frame
+from ..core.frame_build import sensor_f32
 from ..core.se3 import SE3
 from ..utils.log import log_img, log_plt
 from ..utils.tree import tree_map
@@ -45,20 +46,23 @@ def stack_level_data(ref_datas: Sequence) -> Tuple[ic.ICLevelData, ...]:
 
 
 def _sensor_images(intensity, depth, device, depth_scale: float):
-    """Images in a sensor dtype (numpy or tensors) as f32 intensity and
-    metric depth on ``device``: uint8 / uint16 travel as they are (uint16 as
-    int16 bits) and widen there; integer depth is scaled by
-    ``depth_scale`` metres per count, float depth passes as metres (the JAX
-    package's `sensor_to_f32`)."""
-    from ..odometry.sequential import _sensor_f32, _upload
+    """Images in a sensor dtype (numpy or tensors) on ``device`` as the frame
+    build takes them, and the depth's metres per unit: uint8 intensity and
+    uint16 depth (as int16 bits) travel as they are and widen inside the
+    build, other integer images widen to f32 here, float images go as f32;
+    integer depth is in counts of ``depth_scale`` metres, float depth in
+    metres (the JAX package's `sensor_to_f32`)."""
+    from ..odometry.sequential import _upload
 
     def put(x):
         return x.to(device, non_blocking=True) if isinstance(x, torch.Tensor) else _upload(x, device)
 
+    def kept(x, narrow):
+        return x if x.dtype in (narrow, torch.float32) else sensor_f32(x)
+
     intensity, depth = put(intensity), put(depth)
-    scaled = not depth.is_floating_point()
-    intensity, depth = _sensor_f32(intensity), _sensor_f32(depth)
-    return intensity, depth * depth_scale if scaled else depth
+    scale = 1.0 if depth.is_floating_point() else depth_scale
+    return kept(intensity, torch.uint8), kept(depth, torch.int16), scale
 
 
 def build_frame(intensity, depth, camera, cfg: AlignmentConfig, n_levels: int, depth_scale: float = 1.0):
@@ -66,8 +70,8 @@ def build_frame(intensity, depth, camera, cfg: AlignmentConfig, n_levels: int, d
     dtype (numpy or tensors, see `_sensor_images`) on the camera's device,
     queued without a wait. Returns (frame, per-level data): the frame's
     cached `ic.precompute_frame` result for its life as a reference."""
-    intensity, depth = _sensor_images(intensity, depth, camera.fx.device, depth_scale)
-    frame = create_frame(intensity, depth, camera, n_levels=n_levels)
+    intensity, depth, scale = _sensor_images(intensity, depth, camera.fx.device, depth_scale)
+    frame = create_frame(intensity, depth, camera, n_levels=n_levels, depth_scale=scale)
     return frame, ic.precompute_frame(frame, cfg)
 
 

@@ -58,7 +58,7 @@ from .alignment import pallas_kernels
 from .alignment.aligner import RgbdAligner
 from .alignment.ic import AlignmentConfig
 from .config import PipelineConfig
-from .core import lie_np
+from .core import frame_build, lie_np
 from .core.camera import Camera
 from .core.device import resolve
 from .core.frame import Frame, create_frame
@@ -821,6 +821,7 @@ def _launch_counts() -> dict:
         "fused_level_sample": fused_ne.SAMPLE_LAUNCHES,
         "fused_level_ne": fused_ne.NE_LAUNCHES,
         "bilinear_sample_mxu": pallas_kernels.MXU_LAUNCHES,
+        "frame_build": frame_build.FRAME_BUILD_LAUNCHES,
     }
 
 

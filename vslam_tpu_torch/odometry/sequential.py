@@ -49,6 +49,7 @@ from ..core import se3
 from ..core.camera import Camera
 from ..core.device import resolve
 from ..core.frame import create_frame
+from ..core.frame_build import sensor_f32 as _sensor_f32
 from ..core.se3 import SE3
 from ..kalman import ekf_se3
 from ..utils import timer
@@ -110,14 +111,6 @@ def _upload(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _sensor_f32(x: torch.Tensor) -> torch.Tensor:
-    """Widen a sensor image to f32 on its device; int16 holds the bits of
-    unsigned 16-bit depth counts (see `_upload`)."""
-    if x.dtype == torch.int16:
-        return (x.to(torch.int32) & 0xFFFF).to(torch.float32)
-    return x.to(torch.float32)
-
-
 def _device_camera(camera: Camera, device) -> Camera:
     return Camera(*(torch.as_tensor(c, dtype=torch.float32, device=device) for c in camera))
 
@@ -126,18 +119,19 @@ def _sensor_frame(intensity: torch.Tensor, second: torch.Tensor, camera: Camera,
                   cfg: SequentialConfig):
     """(S, H, W) sensor images on the device -> the current frame's pyramid.
     ``second`` is depth counts, or with ``stereo_baseline > 0`` the right
-    image, block-matched against the left with each sequence's fx. The
+    image, block-matched against the left with each sequence's fx. Integer
+    images widen inside the frame build; float ones are taken as f32. The
     span "frame.build"."""
     with timer.scope("frame.build"):
-        intensity = _sensor_f32(intensity)
         if cfg.stereo_baseline > 0.0:
             from ..io.kitti import stereo_depth
 
+            intensity = _sensor_f32(intensity)
             depth = stereo_depth(intensity, _sensor_f32(second), camera.fx, cfg.stereo_baseline,
                                  max_disparity=cfg.stereo_max_disparity)
-        else:
-            depth = _sensor_f32(second) * cfg.depth_scale
-        return create_frame(intensity, depth, camera, n_levels=cfg.n_levels)
+            return create_frame(intensity, depth, camera, n_levels=cfg.n_levels)
+        intensity, second = (x.to(torch.float32) if x.is_floating_point() else x for x in (intensity, second))
+        return create_frame(intensity, second, camera, n_levels=cfg.n_levels, depth_scale=cfg.depth_scale)
 
 
 def init_state(intensity: np.ndarray, depth: np.ndarray, camera: Camera,
