@@ -36,7 +36,7 @@ __all__ = ["readings"]
 def readings(cell: harness.Cell, seed: int, control: bool, device) -> dict:
     kind = cell.traffic["kind"]
     runner = runners.RUNNERS[kind](cell.config, cell.traffic, seed, device)
-    _, _, answers = harness.run_units(runner, device, count=1)
+    answers = harness.run_units(runner, device, count=1).answers
     inputs = runner.inputs
     runner.release()
     del runner

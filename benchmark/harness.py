@@ -12,7 +12,11 @@ With ``--trace 0`` the run renders its inputs, builds and warms up the
 program (``setup_s``, from process start), then runs whole units of work
 (suite passes, pair calls) back to back for at least ``--seconds`` and
 reports the cell's end-to-end rate over all the work and all the time of
-that window. With ``--trace 1`` it runs the traffic's ``trace_units`` units
+that window; each unit's wall time is kept, and their count, median,
+extremes and the unit farthest from the median are one line on stderr.
+`run.py` first binds the process to its card's CPUs with fixed host thread
+pools (`placement.py`); the result's ``device.host_cpus`` names the CPUs.
+With ``--trace 1`` it runs the traffic's ``trace_units`` units
 under `torch.profiler` instead and reports the per-layer metrics. Either
 way, the window's last answers are then checked against the plain
 reference; the numbers compared, each beside its limit, are the last lines
@@ -33,11 +37,13 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from . import placement
+
 ROOT = Path(__file__).resolve().parent.parent
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "vslam_tpu")  # top-level module names, compared whole
 
-__all__ = ["Cell", "load_cell", "cache_env", "verdict", "run_cell", "main"]
+__all__ = ["Cell", "Window", "load_cell", "cache_env", "run_units", "verdict", "run_cell", "main"]
 
 
 class Cell(NamedTuple):
@@ -113,12 +119,16 @@ class LayerRun(NamedTuple):
 
 
 def _device_info(device) -> dict:
+    """The result's ``device``; ``host_cpus`` is the CPU list the run's
+    process ran on (`placement.py`)."""
     import torch
 
+    host_cpus = placement.cpulist_text(os.sched_getaffinity(0))
     if device.type != "cuda":
-        return {"platform": device.type, "kind": device.type, "count": 1, "memory_peak_bytes": 0}
+        return {"platform": device.type, "kind": device.type, "count": 1, "memory_peak_bytes": 0,
+                "host_cpus": host_cpus}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": 1,
-            "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device))}
+            "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device)), "host_cpus": host_cpus}
 
 
 def _sync(device) -> None:
@@ -128,24 +138,46 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_units(runner, device, seconds: Optional[float] = None, count: Optional[int] = None):
+class Window(NamedTuple):
+    """What `run_units` ran: the units, the window's seconds, the host
+    answers of the units whose answers the window fetched, and each unit's
+    wall seconds (they sum to ``seconds``; the last holds the close)."""
+
+    units: int
+    seconds: float
+    answers: list
+    unit_seconds: list
+
+
+def run_units(runner, device, seconds: Optional[float] = None, count: Optional[int] = None) -> Window:
     """Units of work back to back, for at least ``seconds`` or ``count`` of
-    them. Returns (units, elapsed s, the host answers of the units whose
-    answers the window fetched)."""
+    them."""
     answers = []
-    t0 = time.perf_counter()
-    n = 0
+    stamps = [time.perf_counter()]
     while True:
         handle = runner.run()
-        n += 1
+        stamps.append(time.perf_counter())
         if runner.fetches_each:
             answers.append(handle)
-        if (count is not None and n >= count) or (seconds is not None and time.perf_counter() - t0 >= seconds):
+        n = len(stamps) - 1
+        if (count is not None and n >= count) or (seconds is not None and stamps[-1] - stamps[0] >= seconds):
             break
     if not runner.fetches_each:
         answers.append(runner.fetch(handle))
     _sync(device)
-    return n, time.perf_counter() - t0, [runner.answer(a) for a in answers]
+    stamps[-1] = time.perf_counter()  # the last unit ends when its answers are in
+    return Window(n, stamps[-1] - stamps[0], [runner.answer(a) for a in answers], np.diff(stamps).tolist())
+
+
+def unit_line(unit_seconds) -> str:
+    """The window's units on one line: count, median, extremes, and the unit
+    farthest from the median, so a slow run shows whether it was slow all
+    through or had a stall."""
+    u = np.asarray(unit_seconds)
+    med = float(np.median(u))
+    i = int(np.argmax(np.abs(u - med)))
+    return (f"units: {len(u)}, median {med:.6f} s, min {u.min():.6f} s, max {u.max():.6f} s, "
+            f"widest gap from the median {u[i] - med:+.6f} s ({(u[i] - med) / med:+.2%}) at unit {i}")
 
 
 def verdict(gaps: dict, limits: dict):
@@ -169,18 +201,20 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: flo
 
     out = out or sys.stdout
     kind = cell.traffic["kind"]
+    t_runner = time.perf_counter()
     runner = runners.RUNNERS[kind](cell.config, cell.traffic, seed, device)
     _sync(device)
     setup_s = time.perf_counter() - t0
+    runner_s = time.perf_counter() - t_runner
 
     if trace:
         from vslam_tpu_torch.utils import timer
 
         timer.reset()
-        (n, elapsed, answers), tr = capture(lambda: run_units(runner, device, count=int(cell.traffic["trace_units"])),
-                                            timer)
+        window, tr = capture(lambda: run_units(runner, device, count=int(cell.traffic["trace_units"])), timer)
     else:
-        n, elapsed, answers = run_units(runner, device, seconds=seconds)
+        window = run_units(runner, device, seconds=seconds)
+    n, elapsed, answers = window.units, window.seconds, window.answers
     device_info = _device_info(device)
     if _loaded_forbidden():
         return 3
@@ -224,7 +258,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: flo
         result["breakdown"] = tr.breakdown()
     result["checks"] = {name: {"value": v, "limit": lim} for name, (v, lim) in numbers.items()}
     result["checks"]["passes_agree"] = {"value": int(agree), "limit": 1}
-    print(f"{cell.name}: {n} units in {elapsed:.3f} s, setup {setup_s:.3f} s, seed {seed}", file=sys.stderr)
+    print(f"{cell.name}: {n} units in {elapsed:.3f} s, setup {setup_s:.3f} s ({runner_s:.3f} s of it the runner: "
+          f"inputs, kernels, warm-up), seed {seed}", file=sys.stderr)
+    print(unit_line(window.unit_seconds), file=sys.stderr)
     for name, (v, lim) in numbers.items():
         print(f"check {name} {v:.6g} limit {lim:.6g}", file=sys.stderr)
     print(f"check passes_agree {int(agree)} limit 1 ({int(over.sum())} of {len(over)} answers over a limit)",
@@ -243,12 +279,19 @@ def _args(argv):
     return p.parse_args(argv)
 
 
-def main(argv=None, t0: Optional[float] = None) -> int:
+def main(argv=None, t0: Optional[float] = None, where: Optional[placement.Placement] = None) -> int:
+    """A run as `run.py` starts it; ``where`` is the process's placement,
+    made before numpy or torch were imported."""
     t0 = time.perf_counter() if t0 is None else t0
     args = _args(argv)
     cache_env()
     cell = load_cell(args.workload)
     import torch
+
+    if where is not None:
+        torch.set_num_threads(where.threads)
+        print(f"placement: CPUs {placement.cpulist_text(where.cpus)} ({where.source}), {where.threads} host threads",
+              file=sys.stderr)
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"{cell.name} needs {cell.chips} CUDA device(s); found "

@@ -26,7 +26,8 @@ def test_no_source_of_the_benchmark_imports_them():
 
 def test_a_loaded_harness_holds_none_of_them():
     code = (
-        "import sys, benchmark.harness as h, benchmark.runners, benchmark.checks, benchmark.trace\n"
+        "import sys, benchmark.placement, benchmark.harness as h\n"
+        "import benchmark.runners, benchmark.checks, benchmark.trace\n"
         "import vslam_tpu_torch.parallel.sequences, vslam_tpu_torch.parallel.batched\n"
         "print(h.forbidden_modules())\n"
     )
@@ -49,3 +50,4 @@ def test_no_card_no_result():
                           "--seconds", "1", "--trace", "0"], cwd=harness.ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0 and out.stdout.strip() == ""
+    assert "placement: CPUs " in out.stderr  # placed before it looked for a card

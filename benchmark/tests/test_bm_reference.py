@@ -14,7 +14,7 @@ CPU = torch.device("cpu")
 
 def _program(cell, seed):
     runner = runners.RUNNERS[cell.traffic["kind"]](cell.config, cell.traffic, seed, CPU)
-    _, _, answers = harness.run_units(runner, CPU, count=1)
+    answers = harness.run_units(runner, CPU, count=1).answers
     return runner.inputs, answers[-1]
 
 
